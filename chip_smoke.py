@@ -17,13 +17,29 @@ use), then, in order:
    source at 2 km, online saturation, float32) at 1e5 and 1e6 rays, each
    output within 2e-5 of the twin's maximum, the flux against the float64
    twin, bitwise equality, times;
-4. the main path: ``simulate`` with ``rhs_backend="pallas",
-   window_cells=0`` at 1e5 rays for 720 steps (one simulated day at
-   dt = 120 s): exactly 3 x 720 K2 launches, a finite final state, the
-   first 5 steps against the plain torch path, and ray-steps/s and
-   ``sim_day_wall_s`` of both paths; then K2 against its twin again on the
-   spread-out final state;
-5. K1 on its route: 5 steps with ``rhs_backend="xla",
+4. K3 (windowed fused RHS) the same way at 1e5 and 1e6, and on a mixed
+   population (tiles 5, 30 and 90 km tall, ``window_cells=16,
+   window_cells2=48``) whose tiles take the first window, the second tier
+   and the full width: the tier of every tile as the twin's, the flux
+   within 1e-6 of the float64 twin, and K3's outputs bitwise K2's;
+5. the K2 day: ``simulate`` with ``rhs_backend="pallas", window_cells=0``
+   at 1e5 rays for 720 steps (one simulated day at dt = 120 s): exactly
+   3 x 720 K2 launches, a finite final state, the first 5 steps against the
+   plain torch path, and ray-steps/s and ``sim_day_wall_s`` of both paths;
+   then K2 against its twin again on the spread-out final state;
+6. Path A, the default fused step: ``simulate`` with
+   ``rhs_backend="pallas"`` and the default ``window_cells`` at 1e5 rays
+   for 720 steps: exactly 3 x 720 K4 launches and none of K2 or K3, the
+   first 5 steps against the plain path, K4 against its twin over one
+   step, device operations per step and idle share (``torch.profiler``),
+   the window mirror's fallback share at the start and the end of the
+   day; then 3 rk4 steps through K3, 4 launches a step;
+7. Path B, ``simulate_resident`` at 1e5 rays for 720 steps with
+   ``save_every=72``: exactly 10 K5 launches, a finite final state, K5
+   against its twin and against Path A over 9 steps (online and offline,
+   3e-5), one step's wind increment within 1e-6 of the float64 plain path,
+   two runs bitwise equal, times; then 1e6 rays for 20 steps;
+8. K1 on its route: 5 steps with ``rhs_backend="xla",
    projection_backend="pallas"`` at 1e5 rays: 15 K1 launches, within 1e-4
    of the dense ``mxu`` path.
 
@@ -46,7 +62,9 @@ import torch
 
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch import _build
-from msgwam_tpu_torch.ops import projection_cuda, rhs_cuda
+from msgwam_tpu_torch.diagnostics import window_fallback_stats
+from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
+                                  rhs_cuda_windowed, step_cuda)
 
 SEED = 0
 N_MAIN = 100_000
@@ -56,6 +74,9 @@ DAY_STEPS = 720
 TWIN_BAR = 2e-5        # f32 kernel vs f32 twin, relative to the maximum
 F64_BAR = 1e-6         # deposit vs the float64 twin, relative to the maximum
 TRAJ_BAR = 1e-4        # 5-step trajectories, as tests/test_rhs_fused.py
+RESIDENT_BAR = 3e-5    # 9-step whole runs, as tests/test_megakernel.py
+RESIDENT_STEPS = 72    # steps per K5 launch in the day
+KERNEL_COUNTS = (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda)
 
 
 def log(*a):
@@ -73,9 +94,30 @@ def check(ok: bool, what: str):
         raise AssertionError(what)
 
 
-def expect_launches(module, n: int, what: str):
-    check(module.LAUNCHES == n,
-          f"{what}: {module.__name__}.LAUNCHES = {module.LAUNCHES}, expected {n}")
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    for module in KERNEL_COUNTS:
+        if isinstance(module.LAUNCHES, dict):
+            module.LAUNCHES.update(dict.fromkeys(module.LAUNCHES, 0))
+        else:
+            module.LAUNCHES = 0
+
+
+def launches() -> dict:
+    """The launch count of every kernel: K1-K5."""
+    return {"K1": projection_cuda.LAUNCHES, "K2": rhs_cuda.LAUNCHES,
+            "K3": rhs_cuda_windowed.LAUNCHES["rhs_fused_windowed"],
+            "K4": rhs_cuda_windowed.LAUNCHES["rk3_step_fused_windowed"],
+            "K5": step_cuda.LAUNCHES}
+
+
+def expect_launches(what: str, **want):
+    """Fails unless the kernels named in ``want`` were launched exactly so
+    often and every other kernel not at all since the last reset."""
+    got = launches()
+    want = {k: want.get(k, 0) for k in got}
+    check(got == want, f"{what}: launches {got}, expected {want}")
+    return got
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -123,23 +165,40 @@ def deposit_population(n: int, device, seed: int = SEED):
             torch.ones(n, dtype=torch.bool, device=device), t(grid))
 
 
-def bench_setup(n: int, device, rhs_backend="pallas", **cfg_kw):
+def bench_setup(n: int, device, rhs_backend="pallas", bench=True, **cfg_kw):
     """The bench population: REFERENCE_RUN_CONFIG with online saturation in
     float32, sine-jet winds, a gaussian spectrum of ``n`` rays launched at
-    2 km with 500 m extents at 0.3% of saturation."""
-    cfg = mtt.REFERENCE_RUN_CONFIG.replace(
-        saturate_online=True, dtype="float32", rhs_backend=rhs_backend,
-        window_cells=0, **cfg_kw)
+    2 km with 500 m extents at 0.3% of saturation (``bench=False``: the
+    source's defaults, as tests/test_megakernel.py).  ``window_cells=0``
+    unless ``cfg_kw`` says otherwise."""
+    cfg = mtt.REFERENCE_RUN_CONFIG.replace(**{
+        "saturate_online": True, "dtype": "float32",
+        "rhs_backend": rhs_backend, "window_cells": 0, **cfg_kw})
     gc = mtt.GridConfig()
     centers = torch.tensor(gc.centers(), dtype=torch.float32)
     uu = mtt.velocities_sine_homogeneous(centers, cfg)
     vv = torch.zeros_like(uu)
     bg = mtt.make_background(gc, cfg, uu, vv, dtype=torch.float32, device=device)
+    source_kw = dict(z_launch=2000.0, dz_launch=500.0,
+                     amplitude_alpha=0.003) if bench else {}
     rays, statics = mtt.gaussian_spectrum_source(
-        cfg, bg, n, z_launch=2000.0, dz_launch=500.0, amplitude_alpha=0.003,
-        dtype=torch.float32, device=device)
+        cfg, bg, n, dtype=torch.float32, device=device, **source_kw)
     state = mtt.State(rays, mtt.MeanState(uu.to(device), vv.to(device)))
     return cfg, bg, state, statics
+
+
+def tile_spans(state, widths_km, seed: int = SEED):
+    """The mixed population: the rays of each 256-ray tile moved to a band
+    of its own height, the bands' widths cycling through ``widths_km``."""
+    n = state.rays.r.shape[0]
+    rng = np.random.default_rng(seed)
+    tiles = -(-n // ray_physics.TILE)
+    width = np.resize(np.asarray(widths_km, np.float64) * 1e3, tiles)
+    lo = rng.uniform(2e3, 95e3 - width)
+    r = (np.repeat(lo, ray_physics.TILE)[:n]
+         + rng.uniform(0.0, 1.0, n) * np.repeat(width, ray_physics.TILE)[:n])
+    r = torch.tensor(r, dtype=torch.float32, device=state.rays.r.device)
+    return state._replace(rays=state.rays._replace(r=r))
 
 
 def plain_cfg(cfg):
@@ -231,6 +290,57 @@ def phase_k2(state, statics, bg, cfg, label: str) -> dict:
     return res
 
 
+def phase_k3(state, statics, bg, cfg, label: str) -> dict:
+    n = state.rays.r.shape[0]
+    params, scalars, tables = rhs_cuda.prepare_inputs(DT, state, statics, bg, cfg)
+    fields = rhs_cuda.ray_fields(state, statics)
+    window = rhs_cuda_windowed.window_for(cfg, bg.centers.shape[0])
+    prepared = (params, scalars, tables, fields, statics.active, window,
+                cfg.saturate_online, cfg.faithful_saturation)
+    outs, flux, tiers = rhs_cuda_windowed.launch(*prepared, tiers=True)
+    outs2, flux2, _ = rhs_cuda_windowed.launch(*prepared)
+    k2_tend, k2_flux = rhs_cuda.rhs_fused(DT, state, statics, bg, cfg)
+    torch.cuda.synchronize()
+    ttend, tflux, ttiers = ray_physics.fused(*prepared[:5], cfg.saturate_online,
+                                             cfg.faithful_saturation, window)
+    s64, st64, bg64 = to64((state, statics, bg))
+    _, tflux64 = rhs_cuda_windowed.rhs_fused_windowed_reference(DT, s64, st64,
+                                                                bg64, cfg)
+    names = ("dens", "r", "m")
+    errs = {f: rel(ttend[f], o) for f, o in zip(names, outs)}
+    errs["flux"] = rel(tflux, flux)
+    res = {
+        "n": n, "state": label, "window": window, "errs": errs,
+        "flux_err_vs_f64": rel(tflux64, flux),
+        "max_abs_err": max(float((o.double() - ttend[f].double()).abs().max())
+                           for f, o in zip(names, outs)),
+        "bitwise": all(torch.equal(a, b) for a, b in zip(outs, outs2))
+        and bool(torch.equal(flux, flux2)),
+        "equals_k2": all(torch.equal(o, k2_tend[f]) for f, o in zip(names, outs))
+        and bool(torch.equal(flux, k2_flux)),
+        "tiers_as_twin": bool(torch.equal(tiers.long().cpu(), ttiers.cpu())),
+        "tier_counts": {t: int((tiers == t).sum()) for t in (1, 2, 0)},
+        "ms": cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared)),
+        "plain_ms": cuda_ms(lambda: ray_physics.fused(
+            *prepared[:5], cfg.saturate_online, cfg.faithful_saturation,
+            window), iters=5),
+    }
+    log(f"[4] K3 n={n} ({label}, c_pad/W/W2 {window}): kernel vs twin "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; flux vs f64 twin {res['flux_err_vs_f64']:.3e}; bitwise repeat "
+        f"{res['bitwise']}; equals K2 {res['equals_k2']}; tiles per tier "
+        f"(1, 2, full) {res['tier_counts']}, as the twin's "
+        f"{res['tiers_as_twin']}; kernel {res['ms']:.4f} ms, twin "
+        f"{res['plain_ms']:.4f} ms")
+    for k, v in errs.items():
+        check(v <= TWIN_BAR, f"K3 {k} vs twin at {n} ({label})")
+    check(res["flux_err_vs_f64"] < F64_BAR, f"K3 flux vs f64 twin at {n}")
+    check(res["bitwise"], f"K3 bitwise repeat at {n} ({label})")
+    check(res["tiers_as_twin"], f"K3 tiers at {n} ({label})")
+    check(res["equals_k2"], f"K3 equals K2 at {n} ({label})")
+    return res
+
+
 def timed_simulate(state, statics, bg, cfg, n_steps: int):
     run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=n_steps)
     torch.cuda.synchronize()
@@ -245,64 +355,294 @@ def finite(state) -> bool:
                for x in (*state.rays, *state.mean))
 
 
-def phase_main(device, smi: str) -> tuple:
+def timed_resident(state, statics, bg, cfg, n_steps: int, save_every: int):
+    run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=save_every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _, hist = mtt.simulate_resident(state, statics, bg, cfg, run)
+    torch.cuda.synchronize()
+    return final, hist, time.perf_counter() - t0
+
+
+def profile_run(fn, n_steps: int) -> dict:
+    """Device operations and device busy time per step from
+    ``torch.profiler`` over one call of ``fn`` (``None`` where the profiler
+    records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    res = {"wall_ms_per_step": wall * 1e3 / n_steps,
+           "device_ops_per_step": len(dev) / n_steps if dev else None,
+           "device_busy_ms_per_step": busy_ms / n_steps if dev else None,
+           "idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)) if dev else None}
+    return res
+
+
+def traj_errs(want, got) -> dict:
+    errs = {f: rel(getattr(want.rays, f), getattr(got.rays, f))
+            for f in ("dens", "r", "m")}
+    errs["u"] = rel(want.mean.u, got.mean.u)
+    return errs
+
+
+def fmt(errs: dict) -> str:
+    return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+
+
+def phase_k2_day(device, smi: str) -> tuple:
     cfg, bg, state, statics = bench_setup(N_MAIN, device)
     # warm-up: the first launches of every torch op on the card
     timed_simulate(state, statics, bg, cfg, 3)
     timed_simulate(state, statics, bg, plain_cfg(cfg), 3)
 
-    rhs_cuda.LAUNCHES = 0
-    projection_cuda.LAUNCHES = 0
+    reset_launches()
     final, hist, wall = timed_simulate(state, statics, bg, cfg, DAY_STEPS)
-    k2_launches, k1_launches = rhs_cuda.LAUNCHES, projection_cuda.LAUNCHES
-    expect_launches(rhs_cuda, 3 * DAY_STEPS, "main path")
-    check(k1_launches == 0, "main path ran K1")
-    check(finite(final), "main path final state is not finite")
+    counts = expect_launches("K2 day", K2=3 * DAY_STEPS)
+    check(finite(final), "K2 day final state is not finite")
     check(hist[0].rays.r.shape == (1, N_MAIN), "history layout")
 
     _, _, wall_plain = timed_simulate(state, statics, bg, plain_cfg(cfg),
                                       DAY_STEPS)
     rate = N_MAIN * DAY_STEPS / wall
     rate_plain = N_MAIN * DAY_STEPS / wall_plain
-    log(f"[4] main path n={N_MAIN}, {DAY_STEPS} steps: K2 launches "
-        f"{k2_launches}, final state finite; on {smi}:")
-    log(f"[4]   kernel path: sim_day_wall_s {wall:.4f}, ray-steps/s {rate:.4e}")
-    log(f"[4]   plain path:  sim_day_wall_s {wall_plain:.4f}, "
+    log(f"[5] K2 day n={N_MAIN}, {DAY_STEPS} steps: launches {counts}, final "
+        f"state finite; on {smi}:")
+    log(f"[5]   K2 path:    sim_day_wall_s {wall:.4f}, ray-steps/s {rate:.4e}")
+    log(f"[5]   plain path: sim_day_wall_s {wall_plain:.4f}, "
         f"ray-steps/s {rate_plain:.4e}")
 
     a, _, _ = timed_simulate(state, statics, bg, cfg, 5)
     b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
-    errs = {f: rel(getattr(b.rays, f), getattr(a.rays, f)) for f in ("dens", "r", "m")}
-    errs["u"] = rel(b.mean.u, a.mean.u)
-    log("[4]   first 5 steps, kernel vs plain path: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    errs = traj_errs(b, a)
+    log(f"[5]   first 5 steps, K2 path vs plain path: {fmt(errs)}")
     for k, v in errs.items():
         check(v < TRAJ_BAR, f"5-step trajectory {k}")
     return final, statics, bg, cfg, {
-        "launches": k2_launches, "sim_day_wall_s": wall,
+        "launches": counts["K2"], "sim_day_wall_s": wall,
         "ray_steps_per_s": rate, "plain_sim_day_wall_s": wall_plain,
         "plain_ray_steps_per_s": rate_plain, "traj_errs": errs,
     }
+
+
+def phase_path_a(device, smi: str) -> dict:
+    """The default fused step: K4, three launches per step."""
+    cfg, bg, state, statics = bench_setup(N_MAIN, device, window_cells=-1)
+    timed_simulate(state, statics, bg, cfg, 3)
+    fb_start = window_fallback_stats(DT, state, statics, bg, cfg)
+    reset_launches()
+    final, hist, wall = timed_simulate(state, statics, bg, cfg, DAY_STEPS)
+    counts = expect_launches("Path A day", K4=3 * DAY_STEPS)
+    check(finite(final), "Path A final state is not finite")
+    check(hist[0].rays.r.shape == (1, N_MAIN), "Path A history layout")
+    fb_end = window_fallback_stats(DT, final, statics, bg, cfg)
+    rate = N_MAIN * DAY_STEPS / wall
+    prof = profile_run(lambda: timed_simulate(state, statics, bg, cfg, 10), 10)
+    log(f"[6] Path A n={N_MAIN}, {DAY_STEPS} steps, window_cells=-1: launches "
+        f"{counts}; sim_day_wall_s {wall:.4f}, ray-steps/s {rate:.4e} on {smi}")
+    log(f"[6]   profiler over 10 steps: {prof}")
+    log(f"[6]   window mirror, tiles leaving the first window: start "
+        f"{float(fb_start.fallback_rate):.4f}, end {float(fb_end.fallback_rate):.4f}"
+        f" (full width {float(fb_start.full_rate):.4f}, "
+        f"{float(fb_end.full_rate):.4f}) of {int(fb_start.n_blocks)} tiles")
+
+    a, _, _ = timed_simulate(state, statics, bg, cfg, 5)
+    b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
+    errs = traj_errs(b, a)
+    log(f"[6]   first 5 steps, Path A vs plain path: {fmt(errs)}")
+    for k, v in errs.items():
+        check(v < TRAJ_BAR, f"Path A 5-step trajectory {k}")
+
+    # K4 against its twin over one step, and one launch's device time
+    one = rhs_cuda_windowed.rk3_step_fused_windowed(DT, state, statics, bg, cfg)
+    twin = rhs_cuda_windowed.rk3_step_fused_windowed_reference(DT, state,
+                                                               statics, bg, cfg)
+    k4_errs = traj_errs(twin, one)
+    k4_abs = max(float((getattr(one.rays, f).double()
+                        - getattr(twin.rays, f).double()).abs().max())
+                 for f in ("dens", "r", "m"))
+    for k, v in k4_errs.items():
+        check(v <= TWIN_BAR, f"K4 step {k} vs twin")
+    params, scalars, tables = rhs_cuda.prepare_inputs(DT, state, statics, bg, cfg)
+    fields = rhs_cuda.ray_fields(state, statics)
+    window = rhs_cuda_windowed.window_for(cfg, bg.centers.shape[0])
+    outs = tuple(torch.empty_like(fields[0]) for _ in range(3))
+    q = tuple(torch.zeros_like(fields[0]) for _ in range(3))
+    stage = (5.0 / 9.0, 15.0 / 16.0, False)
+    ms = cuda_ms(lambda: rhs_cuda_windowed.launch(
+        params, scalars, tables, fields, statics.active, window,
+        cfg.saturate_online, cfg.faithful_saturation, outs=outs, q=q,
+        stage=stage))
+    plain_ms = cuda_ms(lambda: rhs_cuda_windowed.stage_reference(
+        params, scalars, tables, fields, statics.active, window, cfg, stage, q),
+        iters=5)
+    log(f"[6]   K4 one step vs twin: {fmt(k4_errs)}; one launch {ms:.4f} ms, "
+        f"twin {plain_ms:.4f} ms")
+
+    # the generic integrators take K3: 4 launches per rk4 step
+    cfg4 = cfg.replace(integrator="rk4")
+    reset_launches()
+    a4, _, _ = timed_simulate(state, statics, bg, cfg4, 3)
+    k3_counts = expect_launches("rk4 through K3", K3=12)
+    b4, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg4), 3)
+    rk4_errs = traj_errs(b4, a4)
+    log(f"[6]   rk4, 3 steps: launches {k3_counts}; vs plain rk4 {fmt(rk4_errs)}")
+    for k, v in rk4_errs.items():
+        check(v < TRAJ_BAR, f"rk4 through K3, {k}")
+
+    # the same step at 1e6 rays
+    cfg6, bg6, state6, statics6 = bench_setup(1_000_000, device, window_cells=-1)
+    timed_simulate(state6, statics6, bg6, cfg6, 2)
+    final6, _, wall6 = timed_simulate(state6, statics6, bg6, cfg6, 20)
+    check(finite(final6), "Path A at 1e6 not finite")
+    params, scalars, tables = rhs_cuda.prepare_inputs(DT, state6, statics6, bg6,
+                                                      cfg6)
+    fields = rhs_cuda.ray_fields(state6, statics6)
+    outs = tuple(torch.empty_like(fields[0]) for _ in range(3))
+    q = tuple(torch.zeros_like(fields[0]) for _ in range(3))
+    prepared6 = (params, scalars, tables, fields, statics6.active, window,
+                 cfg6.saturate_online, cfg6.faithful_saturation)
+    ms6 = cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared6, outs=outs, q=q,
+                                                   stage=stage))
+    k3_ms6 = cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared6))
+    log(f"[6]   1e6 rays, 20 steps: {wall6 * 50:.4f} ms per step, ray-steps/s "
+        f"{1e6 * 20 / wall6:.4e}; one K4 launch {ms6:.4f} ms, one K3 launch "
+        f"{k3_ms6:.4f} ms")
+    return {"launches": counts["K4"], "k3_launches": k3_counts["K3"],
+            "sim_day_wall_s": wall, "ray_steps_per_s": rate, "profile": prof,
+            "fallback_start": float(fb_start.fallback_rate),
+            "fallback_end": float(fb_end.fallback_rate),
+            "full_start": float(fb_start.full_rate),
+            "full_end": float(fb_end.full_rate),
+            "traj_errs": errs, "k4_errs": k4_errs, "max_abs_err": k4_abs,
+            "ms": ms, "plain_ms": plain_ms, "rk4_errs": rk4_errs,
+            "ms_per_step_1e6": wall6 * 50, "ray_steps_per_s_1e6": 1e6 * 20 / wall6,
+            "ms_1e6": ms6, "k3_ms_1e6": k3_ms6}
+
+
+def resident_twin(state, statics, bg, cfg, n_steps: int, save_every: int):
+    """K5's twin over a run, launch by launch: ``(dens, r, m, uv, prop)``."""
+    ops = step_cuda.operands(state, statics, bg, cfg, DT)
+    out = (state.rays.dens, state.rays.r, state.rays.m,
+           torch.stack([state.mean.u, state.mean.v]))
+    for _ in range(n_steps // save_every):
+        *out, prop = step_cuda.step_resident_reference(ops, *out, save_every)
+    return (*out, prop)
+
+
+def phase_path_b(device, smi: str) -> dict:
+    """simulate_resident: K5, save_every whole steps per launch."""
+    cfg, bg, state, statics = bench_setup(N_MAIN, device, window_cells=-1)
+    timed_resident(state, statics, bg, cfg, 2, 1)
+    reset_launches()
+    final, hist, wall = timed_resident(state, statics, bg, cfg, DAY_STEPS,
+                                       RESIDENT_STEPS)
+    counts = expect_launches("Path B day", K5=DAY_STEPS // RESIDENT_STEPS)
+    check(finite(final), "Path B final state is not finite")
+    check(hist[0].rays.r.shape == (DAY_STEPS // RESIDENT_STEPS, N_MAIN),
+          "Path B history layout")
+    again, _, wall2 = timed_resident(state, statics, bg, cfg, DAY_STEPS,
+                                     RESIDENT_STEPS)
+    bitwise = all(torch.equal(x, y) for x, y in
+                  zip((*final.rays, *final.mean), (*again.rays, *again.mean)))
+    check(bitwise, "Path B: two runs differ")
+    rate = N_MAIN * DAY_STEPS / wall
+    prof = profile_run(lambda: timed_resident(state, statics, bg, cfg,
+                                              DAY_STEPS, RESIDENT_STEPS),
+                       DAY_STEPS)
+    log(f"[7] Path B n={N_MAIN}, {DAY_STEPS} steps, save_every "
+        f"{RESIDENT_STEPS}: launches {counts}; sim_day_wall_s {wall:.4f} "
+        f"(again {wall2:.4f}), ray-steps/s {rate:.4e} on {smi}; two runs "
+        f"bitwise equal {bitwise}")
+    log(f"[7]   profiler over the day: {prof}")
+
+    # 9 steps against the twin and against Path A, online and offline
+    res9 = {}
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=3)
+    for mode, c, s in (("online", cfg, state),
+                       ("offline", cfg.replace(saturate_online=False),
+                        state._replace(rays=state.rays._replace(
+                            dens=state.rays.dens * 50.0)))):
+        got, ghist, _ = timed_resident(s, statics, bg, c, 9, 3)
+        dens, r, m, uv, prop = resident_twin(s, statics, bg, c, 9, 3)
+        twin_errs = {"dens": rel(dens, got.rays.dens), "r": rel(r, got.rays.r),
+                     "m": rel(m, got.rays.m), "u": rel(uv[0], got.mean.u),
+                     "dens_prop": rel(prop, ghist[2][-1])}
+        pa, _, phist = mtt.simulate(s, statics, bg, c, run9)
+        a_errs = traj_errs(pa, got)
+        a_errs["dens_prop"] = rel(phist[2], ghist[2])
+        abs_err = max(float((x.double() - y.double()).abs().max()) for x, y in
+                      ((dens, got.rays.dens), (r, got.rays.r), (m, got.rays.m)))
+        log(f"[7]   9 steps {mode}: K5 vs twin {fmt(twin_errs)}; vs Path A "
+            f"{fmt(a_errs)}")
+        for k, v in (*twin_errs.items(), *a_errs.items()):
+            check(v < RESIDENT_BAR, f"K5 9 steps {mode} {k}")
+        res9[mode] = {"vs_twin": twin_errs, "vs_path_a": a_errs,
+                      "max_abs_err": abs_err}
+
+    # one step's wind increment against the float64 plain path
+    c4, bg4, s4, st4 = bench_setup(4096, device, bench=False, window_cells=-1)
+    k, _, _ = timed_resident(s4, st4, bg4, c4, 1, 1)
+    du32 = k.mean.u.double() - s4.mean.u.double()
+    c64 = c4.replace(dtype="float64", projection_backend="xla",
+                     interp_backend="gather", rhs_backend="xla", window_cells=0)
+    u64 = s4.mean.u.double().cpu()
+    bg64 = mtt.make_background(mtt.GridConfig(), c64, u64, torch.zeros_like(u64),
+                               dtype=torch.float64, device=device)
+    s64, st64 = to64((s4, st4))
+    a64, _, _ = mtt.simulate(s64, st64, bg64, c64,
+                             mtt.RunConfig(dt=DT, n_steps=1, save_every=1))
+    du64 = a64.mean.u - s64.mean.u
+    wind_err = float((du32 - du64).abs().max() / du64.abs().max())
+    log(f"[7]   one step at 4096 rays: wind increment vs float64 plain path "
+        f"{wind_err:.3e}")
+    check(wind_err < F64_BAR, "K5 wind increment vs float64")
+
+    # one launch of one step: device time of kernel and twin
+    ops = step_cuda.operands(state, statics, bg, cfg, DT)
+    uv = torch.stack([state.mean.u, state.mean.v])
+    work = [x.clone() for x in (state.rays.dens, state.rays.r, state.rays.m, uv)]
+    ms = cuda_ms(lambda: step_cuda.launch(ops, *work, 1))
+    plain_ms = cuda_ms(lambda: step_cuda.step_resident_reference(
+        ops, state.rays.dens, state.rays.r, state.rays.m, uv, 1), iters=3)
+    log(f"[7]   one launch of one step: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+
+    # 1e6 rays
+    cfg6, bg6, state6, statics6 = bench_setup(1_000_000, device, window_cells=-1)
+    timed_resident(state6, statics6, bg6, cfg6, 2, 1)
+    final6, _, wall6 = timed_resident(state6, statics6, bg6, cfg6, 20, 10)
+    check(finite(final6), "Path B at 1e6 not finite")
+    log(f"[7]   1e6 rays, 20 steps in 2 launches: {wall6 * 50:.4f} ms per "
+        f"step, ray-steps/s {1e6 * 20 / wall6:.4e}")
+    return {"launches": counts["K5"], "sim_day_wall_s": wall,
+            "sim_day_wall_s_again": wall2, "ray_steps_per_s": rate,
+            "profile": prof, "nine_steps": res9, "wind_err_vs_f64": wind_err,
+            "max_abs_err": res9["online"]["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "ms_per_step_1e6": wall6 * 50,
+            "ray_steps_per_s_1e6": 1e6 * 20 / wall6}
 
 
 def phase_k1_route(device) -> dict:
     cfg, bg, state, statics = bench_setup(
         N_MAIN, device, rhs_backend="xla", projection_backend="pallas",
         interp_backend="mxu")
-    rhs_cuda.LAUNCHES = 0
-    projection_cuda.LAUNCHES = 0
+    reset_launches()
     a, _, wall = timed_simulate(state, statics, bg, cfg, 5)
-    k1_launches = projection_cuda.LAUNCHES
-    expect_launches(projection_cuda, 15, "K1 route")
-    check(rhs_cuda.LAUNCHES == 0, "K1 route ran K2")
+    counts = expect_launches("K1 route", K1=15)
     b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
-    errs = {f: rel(getattr(b.rays, f), getattr(a.rays, f)) for f in ("dens", "r", "m")}
-    errs["u"] = rel(b.mean.u, a.mean.u)
-    log(f"[5] K1 route n={N_MAIN}, 5 steps: K1 launches {k1_launches}; vs mxu "
-        "path " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    errs = traj_errs(b, a)
+    log(f"[8] K1 route n={N_MAIN}, 5 steps: launches {counts}; vs mxu path "
+        f"{fmt(errs)}")
     for k, v in errs.items():
         check(v < TRAJ_BAR, f"K1 route trajectory {k}")
-    return {"launches": k1_launches, "errs": errs}
+    return {"launches": counts["K1"], "errs": errs}
 
 
 def main() -> int:
@@ -323,17 +663,26 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"[1] built {_build.library_path().name} in {build_s:.2f} s ({lib._name})")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"[1]   {line.strip()}")
 
     k1 = {n: phase_k1(n, device) for n in SIZES}
-    k2 = {}
+    k2, k3 = {}, {}
     for n in SIZES:
         cfg, bg, state, statics = bench_setup(n, device)
         k2[n] = phase_k2(state, statics, bg, cfg, "launch")
+        k3[n] = phase_k3(state, statics, bg, cfg.replace(window_cells=-1),
+                         "launch")
         del cfg, bg, state, statics
-    final, statics, bg, cfg, main_res = phase_main(device, smi)
+    cfg, bg, state, statics = bench_setup(N_MAIN, device, window_cells=16,
+                                          window_cells2=48)
+    k3["mixed"] = phase_k3(tile_spans(state, (5.0, 30.0, 90.0)), statics, bg,
+                           cfg, "mixed tiles")
+    check(all(k3["mixed"]["tier_counts"].values()), "mixed: a tier never ran")
+    final, statics, bg, cfg, k2_day = phase_k2_day(device, smi)
     k2_spread = phase_k2(final, statics, bg, cfg, f"after {DAY_STEPS} steps")
+    path_a = phase_path_a(device, smi)
+    path_b = phase_path_b(device, smi)
     route = phase_k1_route(device)
 
     kernels = [
@@ -346,16 +695,34 @@ def main() -> int:
         {"name": "K2 fused RHS (rhs_fused)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/rhs_fused.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
-         "launches": main_res["launches"],
+         "launches": k2_day["launches"],
          "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"]),
          "ms": k2_spread["ms"], "plain_ms": k2_spread["plain_ms"]},
+        {"name": "K3 windowed fused RHS (rhs_fused_windowed)", "route": "cuda",
+         "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
+         "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:338",
+         "launches": path_a["k3_launches"],
+         "max_abs_err": max(k3[N_MAIN]["max_abs_err"], k3["mixed"]["max_abs_err"]),
+         "ms": k3[N_MAIN]["ms"], "plain_ms": k3[N_MAIN]["plain_ms"]},
+        {"name": "K4 stage-fused windowed RHS (rk3_step_fused_windowed)",
+         "route": "cuda", "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
+         "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
+         "launches": path_a["launches"], "max_abs_err": path_a["max_abs_err"],
+         "ms": path_a["ms"], "plain_ms": path_a["plain_ms"]},
+        {"name": "K5 whole-run kernel (simulate_resident)", "route": "cuda",
+         "source": "msgwam_tpu_torch/csrc/step_resident.cu",
+         "replaces": "msgwam_tpu/ops/step_pallas.py:538",
+         "launches": path_b["launches"], "max_abs_err": path_b["max_abs_err"],
+         "ms": path_b["ms"], "plain_ms": path_b["plain_ms"]},
     ]
     summary = {
         "k1": {str(n): v for n, v in k1.items()},
         "k2": {**{str(n): v for n, v in k2.items()}, "spread": k2_spread},
-        "main": main_res, "k1_route": route, "build_s": build_s,
+        "k3": {str(n): v for n, v in k3.items()},
+        "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
+        "k1_route": route, "build_s": build_s,
     }
-    log("[6] details " + json.dumps(summary))
+    log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels
               for f in ("max_abs_err", "ms", "plain_ms")), "non-finite summary")
     print(json.dumps({"kernels": kernels}))

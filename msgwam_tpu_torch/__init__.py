@@ -9,9 +9,11 @@ and never ``jax``.
 
 This slice covers the coupled vertical-propagation step (``hprop=False``
 is the fast path; ``hprop=True`` runs on the composable path) through
-:func:`simulate`, with the fused RHS kernel K2 (``rhs_backend="pallas",
-window_cells=0``) and the deposit kernel K1 (``projection_backend=
-"pallas"``).
+:func:`simulate`, with the fused RHS kernels K2 (``rhs_backend="pallas",
+window_cells=0``), K3 and the stage-fused K4 (``rhs_backend="pallas"``
+with the default ``window_cells=-1`` or any other nonzero width), the
+deposit kernel K1 (``projection_backend="pallas"``), and whole runs of
+the persistent kernel K5 through :func:`simulate_resident`.
 """
 
 from .config import GridConfig, ModelConfig, RunConfig, REFERENCE_RUN_CONFIG  # noqa: F401
@@ -53,5 +55,6 @@ from .ops import (  # noqa: F401
     saturation_tendency,
     wavenumber_tendencies,
 )
+from .ops.step_cuda import simulate_resident  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use :func:`library` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface and loads it with ``ctypes``::
+At first use :func:`library` compiles every ``csrc/*.cu`` into an object,
+one ``nvcc`` per source, all started together, and links the objects into
+one shared library with a plain C interface, loaded with ``ctypes``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -Xptxas -v -o _build/libmsgwam_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<hash>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libmsgwam_<hash>.so _build/<hash>/*.o
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch twins compute them: a contracted ``r_up * idz + 1`` could
@@ -14,6 +16,9 @@ The library name carries a hash of the sources, so an edited source is
 rebuilt and a stale library is never loaded.  Only the sources in this
 package are used; the compiler's report (registers, spills) is kept beside
 the library as ``<name>.log``.
+
+:func:`forward_only` is the guard every kernel entry point calls: the
+kernels have no backward yet.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -53,6 +60,33 @@ SIGNATURES = {
         _I,                           # n
         _P, _P, _P, _P, _P, _I,       # dens_st drr_st dmm_st flux partials n_blocks
         _I, _I,                       # saturate_online faithful
+        _P,                           # stream
+    ],
+    "msgwam_rhs_windowed": [
+        _P, _F, _F, _F, _F,           # params(g0c, dz, g0f) dt bvf kappa f0
+        _P, _P, _P, _I,               # du_dz dv_dz rhobar n_tab
+        _I, _I, _I,                   # c_pad w1 w2
+        _P, _P, _P, _P, _P, _P, _P, _P,   # dens r dr k l m dm phi
+        _P, _P, _P, _P,               # dkk dll area active
+        _I,                           # n
+        _P, _P, _P, _P, _P, _P,       # out_dens out_r out_m q_dens q_r q_m
+        _P, _P, _P, _I,               # flux partials tiers n_blocks
+        _I, _I, _I, _F, _F, _I,       # saturate_online faithful staged cc bc first
+        _P,                           # stream
+    ],
+    "msgwam_step_resident_blocks": [
+        _I, _P,                       # n, out: n_blocks
+    ],
+    "msgwam_step_resident": [
+        _F, _F, _F, _F, _F, _F, _F, _F, _F,   # g0c dz g0f dzf dt bvf kappa f0 rdiv
+        _I, _I, _I, _I,               # n_tab c_pad w1 w2
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,   # dr k l dm phi dkk dll area active
+        _I,                           # n
+        _P, _P, _P, _P, _P, _P,       # dens r m qd qr qm
+        _P, _P, _P,                   # r_prev m_prev dens_prop
+        _P, _P, _P, _P,               # uv rhobar pg inv_rho
+        _P, _P, _I, _I,               # flux partials n_blocks n_steps
+        _I, _I, _I,                   # online prognostic faithful
         _P,                           # stream
     ],
 }
@@ -83,19 +117,33 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of their hash exists."""
+    """Compile the sources unless a library of their hash exists: one
+    ``nvcc -c`` per source, run in parallel, then one link."""
     lib = library_path()
     if lib.is_file():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = lib.with_suffix("")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [obj_dir / f"{p.stem}.{os.getpid()}.o" for p in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(sources, objs)]
+    logs = [f"== {p.name}\n{proc.communicate()[0]}"
+            for p, proc in zip(sources, procs)]
+    failed = [p.name for p, proc in zip(sources, procs) if proc.returncode]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode:
+            failed.append("link")
+    lib.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "".join(logs))
     os.replace(tmp, lib)
     return lib
 
@@ -115,3 +163,22 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(x)
+
+
+def forward_only(name: str, *trees) -> None:
+    """Raise when autograd would record through a kernel entry point: the
+    kernels return tensors without a ``grad_fn``, so a gradient would
+    otherwise vanish without a word.  Checked on every device alike."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(trees)):
+        raise NotImplementedError(
+            f"{name} is forward only: the kernels' backward lands with the "
+            f"adjoint (ROADMAP queue 1, item 6); run it under "
+            f"torch.no_grad(), or use rhs_backend='xla' for gradients")

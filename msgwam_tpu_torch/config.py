@@ -14,12 +14,14 @@ The backend strings keep their names; their meaning in the port:
 * ``interp_backend``: ``"gather"`` is ``np.interp``-exact indexing,
   ``"mxu"`` a dense hat-basis matmul.
 * ``rhs_backend``: ``"xla"`` is the composable torch RHS, ``"pallas"``
-  the hand-written fused CUDA RHS kernel
-  (:mod:`msgwam_tpu_torch.ops.rhs_cuda`), full width only
-  (``window_cells=0``).
+  the hand-written fused CUDA RHS kernels: K2 at full width
+  (``window_cells=0``, :mod:`msgwam_tpu_torch.ops.rhs_cuda`), else K3 with
+  a per-tile height window and, in ``rk3_step``, K4 with the RK3 stage
+  fused in (:mod:`msgwam_tpu_torch.ops.rhs_cuda_windowed`).
 
-The comments on the fields below are those of the JAX package; speeds
-quoted there were measured on a TPU and say nothing about the port.
+The comments on the fields below are those of the JAX package, except
+for the window fields, which describe the port's kernels; speeds quoted
+in the others were measured on a TPU and say nothing about the port.
 """
 
 from __future__ import annotations
@@ -101,40 +103,22 @@ class ModelConfig:
     # "pallas" (one fused TPU kernel per RHS evaluation; float32,
     # hprop=False only — see ops/rhs_pallas.py).
     rhs_backend: str = "xla"
-    # Adaptive height-windowed fused kernel (pallas backend only): restrict
-    # each 8192-ray block's basis/weight construction to a window of this
-    # many grid cells.  Values are clamped to a floor of 16 and rounded up
-    # to a multiple of 8 (both kernel entry points apply
-    # ``max(window_cells, 16)``); 0 disables windowing and selects the
-    # plain full-width fused kernel.  The window start is computed per
-    # block *inside* the kernel from that block's own touched-cell bounds,
-    # and any block whose span outgrows the window falls back — per block,
-    # in the same kernel — to the exact full-width path, so results are
-    # always exact.  Source slots are launched height-ordered, so coherent
-    # workloads stay windowed with no sorting.  The default -1 means
-    # *auto*: the megakernel drivers resolve it against the measured
-    # per-size champion ladder (ops/rhs_pallas.py:resolve_champion — W=24
-    # below ~2e5 rays, W=16 above), and the scan-path windowed kernel
-    # resolves it to the 16-cell floor (the measured-fastest fixed setting
-    # there: 1.16e9 ray-steps/s at 1e6 rays — benchmarks/RESULTS.md); see
-    # ops/rhs_pallas_windowed.py.
+    # Height window of the windowed fused kernels K3-K5 (pallas backend
+    # only).  Each 256-ray tile reads its interpolation tables only inside
+    # a window of this many cells, placed in the kernel from the cells the
+    # tile's active rays touch.  The width has a floor of 16 and rounds up
+    # to a multiple of 8; 0 selects the full-width kernel K2 instead.  A
+    # tile whose rays outgrow the window tries ``window_cells2`` and then
+    # reads the whole table: the exact full-width path, inside the same
+    # kernel, so a result never depends on the window.  The default -1
+    # resolves to the 16-cell floor (``ops/rhs_cuda.py:resolve_champion``).
     window_cells: int = -1
 
-    # Second window tier for the megakernel family (ops/step_pallas*.py):
-    # a block whose span outgrows ``window_cells`` tries this wider window
-    # before falling back to the exact full-width path.  Motivated by the
-    # measured span distribution (tools/span_study.py): after ~1000 steps
-    # the per-block spans are BIMODAL — coherent blocks stay under ~16-24
-    # cells while the dispersive small-|m| tail blocks mix to 80-100 cells
-    # (per-ray extents stay at ~0.5 cells; it is pure positional mixing) —
-    # so a wide second tier recovers most of the 8x full-width penalty on
-    # exactly those blocks.  Rounded up to a multiple of 8; 0 disables the
-    # tier; the default -1 means *auto* — the megakernel drivers resolve
-    # it against the champion ladder (W2=96 at >1e5-class sizes, where it
-    # wins +5%; off below, where it is NEGATIVE -2..-9% and window_cells=24
-    # is the right move instead — ops/rhs_pallas.py:resolve_champion), and
-    # the scan-path kernels resolve it to off.  Results are exact on every
-    # path.  Measured on TPU: benchmarks/WORKLIST_r03.jsonl.
+    # Second window tier of the windowed kernels: a tile that outgrows
+    # ``window_cells`` tries this wider window before the full width.
+    # Rounded up to a multiple of 8 and capped at c_pad - 8; 0 disables
+    # it, and so does any width not above ``window_cells``.  The default
+    # -1 resolves to off.  Results are exact on every path.
     window_cells2: int = -1
 
     # Prognostic mean flow (wave–mean-flow coupling on).  False freezes the

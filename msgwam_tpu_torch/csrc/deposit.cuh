@@ -1,5 +1,6 @@
 // Ray -> grid flux deposit, shared by the projection kernel (K1,
-// projection.cu) and the fused RHS kernel (K2, rhs_fused.cu).
+// projection.cu), the fused RHS kernels (K2, rhs_fused.cu; K3/K4,
+// rhs_windowed.cu) and the whole-run kernel (K5, step_resident.cu).
 //
 // Reference semantics (lib/libprop.py:121-160, kept by both Pallas kernels):
 // a ray volume [r_low, r_up] covers cells nlow <= c < nup, with
@@ -17,8 +18,9 @@
 // shuffles.  A ray covers 1-3 cells at the bench population, so a whole warp
 // shares each cell's walk.  The block adds each cell's tile sum to a
 // float64 accumulator in shared memory and ends with one per-block partial;
-// a second kernel adds the partials in block order.  No float atomics: the
-// result is bitwise reproducible for a given ray count.
+// a second pass adds the partials in block order (a kernel of its own, or a
+// phase of K5 after a grid sync).  No float atomics: the result is bitwise
+// reproducible for a given block count.
 #pragma once
 
 #include <climits>
@@ -55,14 +57,17 @@ struct DepositTile {
   int wmax[kWarps];
 };
 
-// Per-block float64 sums of the two value rows, in shared memory.
-struct DepositAcc {
-  double v[2][kMaxCells];
+// Per-block float64 sums of the two value rows, in shared memory, for at
+// most kCells cells.
+template <int kCells>
+struct DepositAccN {
+  double v[2][kCells];
 
   __device__ void zero(int n_cells) {
     for (int c = threadIdx.x; c < n_cells; c += kThreads) v[0][c] = v[1][c] = 0.0;
   }
 };
+using DepositAcc = DepositAccN<kMaxCells>;
 
 // Every thread of the block calls this once per tile (a dead or missing ray
 // passes live = false), then __syncthreads(), then deposit_walk.
@@ -88,9 +93,9 @@ __device__ __forceinline__ void deposit_stage(DepositTile& t, bool live,
 // Adds the staged tile's contributions to the block's sums.  The caller
 // __syncthreads() after it, before the next tile is staged.  Every thread
 // of the block takes part (the shuffles need whole warps).
-__device__ __forceinline__ void deposit_walk(const DepositTile& t,
-                                             DepositAcc& acc, float g0,
-                                             float dz) {
+template <class Acc>
+__device__ __forceinline__ void deposit_walk(const DepositTile& t, Acc& acc,
+                                             float g0, float dz) {
   int cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
@@ -134,8 +139,9 @@ __device__ __forceinline__ void deposit_walk(const DepositTile& t,
 
 // Writes the block's sums to partials[(block, var, cell)]; call after the
 // last tile's __syncthreads().
-__device__ __forceinline__ void deposit_store(const DepositAcc& acc,
-                                              double* partials, int n_cells) {
+template <class Acc>
+__device__ __forceinline__ void deposit_store(const Acc& acc, double* partials,
+                                              int n_cells) {
   double* p = partials + static_cast<size_t>(blockIdx.x) * 2 * n_cells;
   for (int c = threadIdx.x; c < n_cells; c += kThreads) {
     p[c] = acc.v[0][c];
@@ -143,24 +149,38 @@ __device__ __forceinline__ void deposit_store(const DepositAcc& acc,
   }
 }
 
-// Second pass: one block per (var, cell); each thread adds a strided set of
-// block partials, then a fixed shared-memory tree.  out is (2, n_cells) f32.
-// static: each translation unit that includes this header gets its own copy.
-static __global__ void __launch_bounds__(kThreads)
-deposit_reduce_kernel(const double* __restrict__ partials, int n_blocks,
-                      int n_cells, float* __restrict__ out) {
-  __shared__ double s[kThreads];
-  const int vc = blockIdx.x;             // var * n_cells + cell
+// The second pass for one (var, cell) entry vc = var * n_cells + cell,
+// by the whole block: each thread adds a strided set of block partials,
+// then a fixed shared-memory tree.  ``s`` is kThreads doubles of shared
+// scratch, free again when this returns.  The partials are read past L1
+// (__ldcg): K5 reads them right after a grid sync.
+__device__ __forceinline__ double sum_partials(const double* partials,
+                                               int n_blocks, int n_cells,
+                                               int vc, double* s) {
   double sum = 0.0;
   for (int b = threadIdx.x; b < n_blocks; b += kThreads)
-    sum += partials[static_cast<size_t>(b) * 2 * n_cells + vc];
+    sum += __ldcg(partials + static_cast<size_t>(b) * 2 * n_cells + vc);
   s[threadIdx.x] = sum;
   __syncthreads();
   for (int half = kThreads / 2; half > 0; half >>= 1) {
     if (threadIdx.x < half) s[threadIdx.x] += s[threadIdx.x + half];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[vc] = static_cast<float>(s[0]);
+  const double total = s[0];
+  __syncthreads();
+  return total;
+}
+
+// Second pass as a kernel: one block per (var, cell).  out is (2, n_cells)
+// f32.  static: each translation unit that includes this header gets its
+// own copy.
+static __global__ void __launch_bounds__(kThreads)
+deposit_reduce_kernel(const double* __restrict__ partials, int n_blocks,
+                      int n_cells, float* __restrict__ out) {
+  __shared__ double s[kThreads];
+  const int vc = blockIdx.x;
+  const double total = sum_partials(partials, n_blocks, n_cells, vc, s);
+  if (threadIdx.x == 0) out[vc] = static_cast<float>(total);
 }
 
 static inline cudaError_t launch_deposit_reduce(const double* partials, int n_blocks,

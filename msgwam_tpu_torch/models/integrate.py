@@ -120,7 +120,19 @@ def rk3_step(
     rhs: Callable = rhs_default,
 ) -> State:
     """One integrator step of the coupled system (``cfg.integrator``
-    selects rk3/rk4/euler).  The full ``dt`` goes to every stage's RHS."""
+    selects rk3/rk4/euler).  The full ``dt`` goes to every stage's RHS.
+
+    With the windowed pallas backend (``window_cells != 0``), RK3, the
+    default RHS and ``hprop=False``, the whole step runs stage-fused in
+    the kernel K4 (``ops/rhs_cuda_windowed.py``), three launches per
+    step."""
+    if (rhs is rhs_default and cfg.rhs_backend == "pallas"
+            and cfg.window_cells != 0 and cfg.integrator == "rk3"
+            and not cfg.hprop):
+        from ..ops import rhs_cuda_windowed
+
+        return rhs_cuda_windowed.rk3_step_fused_windowed(
+            dt, state, statics, bg, cfg, axis_name)
     integ = INTEGRATORS[cfg.integrator]
     return integ(lambda s: rhs(dt, s, statics, bg, cfg, axis_name), state, dt)
 

@@ -7,9 +7,10 @@ deposit of the pseudo-momentum flux onto the staggered grid, boundary
 padding by copy, the flux divergence and the wind tendencies.
 
 ``cfg.rhs_backend="xla"`` is the composable torch path (any
-configuration); ``"pallas"`` runs the fused CUDA kernel K2
-(:mod:`msgwam_tpu_torch.ops.rhs_cuda`) at full width
-(``window_cells=0``), with the same torch glue around it.
+configuration); ``"pallas"`` runs a fused CUDA kernel with the same torch
+glue around it: K2 (:mod:`msgwam_tpu_torch.ops.rhs_cuda`) at full width
+for ``window_cells=0``, K3 (:mod:`msgwam_tpu_torch.ops.rhs_cuda_windowed`)
+with its per-tile height window otherwise.
 """
 
 from __future__ import annotations
@@ -170,16 +171,15 @@ def _rhs_xla(
 
 
 def _rhs_via_fused_kernel(dt, state, statics, bg, cfg) -> State:
-    """RHS through the fused CUDA kernel K2: the kernel returns the three
-    active ray tendencies and the interior flux; the mean-flow glue is the
-    composable path's.  Only the full-width kernel (``window_cells=0``) is
-    ported."""
+    """RHS through a fused CUDA kernel: K2 at full width
+    (``window_cells=0``), else K3 with its per-tile window (``-1``
+    resolves to the 16-cell floor).  The kernel returns the three active
+    ray tendencies and the interior flux; the mean-flow glue is the
+    composable path's."""
     if cfg.window_cells != 0:
-        raise NotImplementedError(
-            f"rhs_backend='pallas' with window_cells={cfg.window_cells} needs "
-            f"the height-windowed kernels K3/K4 (ROADMAP queue 2), which are "
-            f"not ported yet; set window_cells=0 for the full-width kernel K2")
-    from ..ops.rhs_cuda import rhs_fused
+        from ..ops.rhs_cuda_windowed import rhs_fused_windowed as rhs_fused
+    else:
+        from ..ops.rhs_cuda import rhs_fused
 
     rays, mean = state
     tend, pm_interior = rhs_fused(dt, state, statics, bg, cfg)

@@ -1,0 +1,242 @@
+"""Plain PyTorch twin of ``csrc/ray_physics.cuh``: the per-ray physics of
+the ``hprop=False`` right-hand side and the per-tile height window, shared
+by the twins of the kernels K2 (:mod:`.rhs_cuda`), K3/K4
+(:mod:`.rhs_cuda_windowed`) and K5 (:mod:`.step_cuda`), and by the window
+mirror :mod:`msgwam_tpu_torch.diagnostics`.
+
+Each function computes what its CUDA namesake computes, in the same order
+of operations, in the dtype of its inputs (float32 to hold a kernel to it,
+float64 for an oracle).  The deposit is a dense ``(n, n_cells)`` weight
+matrix with float64-combined block partials.
+
+The window rule (``msgwam_tpu/ops/rhs_pallas_windowed.py:124-147``): the
+rays of a tile of :data:`TILE` rays touch cells ``[lo, hi)``; the window
+starts at ``lo`` rounded down to a multiple of 8, clipped to
+``[0, c_pad - W]``, and the tile takes the first of ``W``, ``W2`` and the
+full width that holds ``hi``.  A lookup reads only inside its tile's
+window, which changes no result for an active ray.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..constants import ROT_EARTH
+from .projection import _reduce_partials, block_partials
+
+TILE = 256           # csrc/deposit.cuh kThreads: rays per tile
+EMPTY_LO = 1e9       # an inactive ray's window bounds
+EMPTY_HI = -1e9
+
+# Williamson RK3 coefficients (c, b, first) of the three stages
+RK3_STAGES = ((0.0, 0.0, True), (5.0 / 9.0, 15.0 / 16.0, False),
+              (153.0 / 128.0, 8.0 / 15.0, False))
+
+
+class Geometry(NamedTuple):
+    g0c: torch.Tensor      # first cell center
+    dz: torch.Tensor
+    g0f: torch.Tensor      # first interior face
+    idz: torch.Tensor
+    hi_c: torch.Tensor     # last center
+    hi_f: torch.Tensor     # last interior face
+    n_tab: int             # centers (rho's table)
+    n_flux: int            # interior faces (the shears' table) = deposit cells
+    nzmax: int
+
+
+def geometry(params, n_tab: int) -> Geometry:
+    """``params`` is ``(g0c, dz, g0f)``, as the kernels read it."""
+    g0c, dz, g0f = params[0], params[1], params[2]
+    return Geometry(g0c, dz, g0f, 1.0 / dz, g0c + (n_tab - 1.0) * dz,
+                    g0f + (n_tab - 2.0) * dz, n_tab, n_tab - 1, n_tab - 2)
+
+
+class RayTerms(NamedTuple):
+    """What each ray contributes before the winds are known."""
+
+    kh2: torch.Tensor
+    ik2: torch.Tensor
+    cgr: torch.Tensor
+    r_lo: torch.Tensor
+    r_up: torch.Tensor
+    fvk: torch.Tensor      # deposit values (zero unless live)
+    fvl: torch.Tensor
+    nlow: torch.Tensor     # clamped cell span [nlow, nup)
+    nup: torch.Tensor
+    live: torch.Tensor
+    qf: torch.Tensor       # hat coordinate of the shear lookup at r
+    qr: torch.Tensor       # ... of the rho lookup at r + cg_r dt
+
+
+def ray_terms(fields, act, g: Geometry, dt, bvf) -> RayTerms:
+    """``fields`` is the 11-tuple ``(dens, r, dr, k, l, m, dm, phi, dkk,
+    dll, area)``."""
+    dens, r, dr, k, l, m, dm, phi, dkk, dll, area = fields
+    ff = 2.0 * ROT_EARTH * torch.sin(phi)
+    kh2 = k * k + l * l
+    k2 = kh2 + m * m
+    ik2 = 1.0 / k2
+    om2 = (bvf * bvf * kh2 + ff * ff * m * m) * ik2
+    cgr = -m * (om2 - ff * ff) * torch.rsqrt(om2) * ik2
+
+    # deposit inputs: indices from r * (1/dz), 1/dz folded into the values
+    r_lo = r - 0.5 * dr
+    r_up = r + 0.5 * dr
+    nlow = (r_lo * g.idz).to(torch.int64)
+    nup = (r_up * g.idz + 1.0).to(torch.int64)
+    ood = ((nlow >= g.nzmax) & (nup >= g.nzmax)) | ((nlow <= 0) & (nup <= 0))
+    live = act & ~ood
+    pv = torch.abs(dkk * dll * dm)
+    fv = cgr * dens * g.idz
+    zero = torch.zeros_like(r)
+    fvk = torch.where(live, fv * k * pv, zero)
+    fvl = torch.where(live, fv * l * pv, zero)
+
+    qf = (torch.clamp(r, g.g0f, g.hi_f) - g.g0f) * g.idz
+    qr = (torch.clamp(r + cgr * dt, g.g0c, g.hi_c) - g.g0c) * g.idz
+    return RayTerms(kh2, ik2, cgr, r_lo, r_up, fvk, fvl,
+                    torch.clamp(nlow, 0, g.nzmax), torch.clamp(nup, 0, g.nzmax),
+                    live, qf, qr)
+
+
+class RayWindow(NamedTuple):
+    """Each ray's read window ``[base, base + width)`` of tables padded
+    with zeros to ``c_pad`` entries."""
+
+    base: torch.Tensor
+    width: torch.Tensor
+    c_pad: int
+
+
+def lookup(table, q, window: Optional[RayWindow] = None):
+    """Two-point interpolation at hat coordinates ``q >= 0``, ``i`` clamped
+    to ``len - 2``; with a window, the two entries read are kept inside
+    it (``interp_window``)."""
+    i = torch.clamp(q.to(torch.int64), max=table.shape[0] - 2)
+    t = q - i.to(q.dtype)
+    if window is not None:
+        table = F.pad(table, (0, window.c_pad - table.shape[0]))
+        i = window.base + torch.minimum(torch.clamp(i - window.base, min=0),
+                                        window.width - 2)
+    return table[i] * (1.0 - t) + table[i + 1] * t
+
+
+def tendencies(fields, act, rt: RayTerms, du, dv, rho, dt, bvf, kappa, f0,
+               online: bool, faithful: bool) -> dict:
+    """dm/dt and the online saturation tendency; 0 on inactive rays."""
+    dens, r, dr, k, l, m, dm, phi, dkk, dll, area = fields
+    zero = torch.zeros_like(r)
+    dmm = -(k * du + l * dv)
+    if online:
+        m_fin = m + dmm * dt
+        dmm_fin = area / dr
+        omh2 = (bvf * bvf * rt.kh2 + f0 * f0 * m * m) * rt.ik2
+        cap = (kappa * kappa * 0.5 * rho * omh2 * torch.rsqrt(omh2) * bvf * bvf
+               / (m_fin * m_fin * (omh2 - f0 * f0)))
+        pvol = dkk * dll * dmm_fin
+        cap_applied = cap if faithful else cap / pvol
+        dst = torch.where(cap < dens * pvol, (cap_applied - dens) * (1.0 / dt),
+                          zero)
+    else:
+        dst = zero
+    return {"dens": torch.where(act, dst, zero),
+            "r": torch.where(act, rt.cgr, zero),
+            "m": torch.where(act, dmm, zero)}
+
+
+def rk3_stage(tend, y, q, dt, cc, bc, first: bool):
+    """One Williamson RK3 stage: ``(y', q')`` with ``q' = dt f - c q`` and
+    ``y' = y + b q'``; the first stage adds ``q'/3`` by division."""
+    if first:
+        q = dt * tend
+        return y + q / 3.0, q
+    q = dt * tend - cc * q
+    return y + bc * q, q
+
+
+def window_bounds(rt: RayTerms, act):
+    """Each ray's touched-cell bounds ``(lo, hi)`` as floats: the hat reads
+    of both lookups and the deposit span; the empty span on inactive
+    rays."""
+    fq, rq = torch.floor(rt.qf), torch.floor(rt.qr)
+    lo = torch.minimum(torch.minimum(fq, rq) - 1.0, rt.nlow.to(fq.dtype))
+    hi = torch.maximum(torch.maximum(fq, rq) + 2.0, rt.nup.to(fq.dtype))
+    return torch.where(act, lo, EMPTY_LO), torch.where(act, hi, EMPTY_HI)
+
+
+def tile_bounds(lo, hi, tile: int = TILE):
+    """Per-tile ``(lo, hi)`` of consecutive ``tile``-ray tiles; the last
+    tile is padded with empty spans."""
+    pad = -lo.shape[0] % tile
+    lo = F.pad(lo, (0, pad), value=EMPTY_LO)
+    hi = F.pad(hi, (0, pad), value=EMPTY_HI)
+    return lo.view(-1, tile).amin(dim=1), hi.view(-1, tile).amax(dim=1)
+
+
+def tile_windows(lo_b, hi_b, c_pad: int, w1: int, w2: int):
+    """The window rule per tile: ``(tier, base, width)``, tier 1 for the
+    first window, 2 for the second, 0 for the full width."""
+    lo8 = torch.div(lo_b.to(torch.int64), 8, rounding_mode="floor") * 8
+    win = torch.clamp(lo8, 0, c_pad - w1)
+    ok = hi_b - win.to(hi_b.dtype) <= w1
+    tier = torch.where(ok, 1, 0)
+    base = torch.where(ok, win, 0)
+    width = torch.where(ok, w1, c_pad)
+    if w2:
+        win2 = torch.clamp(lo8, 0, c_pad - w2)
+        ok2 = ~ok & (hi_b - win2.to(hi_b.dtype) <= w2)
+        tier = torch.where(ok2, 2, tier)
+        base = torch.where(ok2, win2, base)
+        width = torch.where(ok2, w2, width)
+    return tier, base, width
+
+
+def ray_window(lo, hi, c_pad: int, w1: int, w2: int):
+    """``(tiers, RayWindow)``: the tiles' windows, spread to their rays."""
+    tier, base, width = tile_windows(*tile_bounds(lo, hi), c_pad, w1, w2)
+    tile_of = torch.arange(lo.shape[0], device=lo.device) // TILE
+    return tier, RayWindow(base[tile_of], width[tile_of], c_pad)
+
+
+def deposit(rt: RayTerms, g: Geometry):
+    """The ``(2, n_flux)`` flux: a dense overlap-weight matrix, block
+    partials and a float64 combination."""
+    dtype = rt.r_lo.dtype
+    c = torch.arange(g.n_flux, device=rt.r_lo.device)
+    cf = c.to(dtype)
+    face_lo = g.g0c + cf * g.dz
+    face_hi = g.g0c + (cf + 1.0) * g.dz
+    in_span = (c >= rt.nlow[:, None]) & (c < rt.nup[:, None])
+    w = torch.abs(torch.minimum(face_hi, rt.r_up[:, None])
+                  - torch.maximum(face_lo, rt.r_lo[:, None]))
+    w = torch.where(in_span, w, torch.zeros_like(w))
+    return _reduce_partials(block_partials(torch.stack([rt.fvk, rt.fvl]), w),
+                            "f64", dtype)
+
+
+def fused(params, scalars, tables, fields, act, online: bool, faithful: bool,
+          window=None):
+    """The fused RHS of one evaluation: ``(tendencies, flux, tiers)``.
+
+    ``scalars`` is ``(dt, bvf, kappa, f0)``, ``tables`` ``(du_dz, dv_dz,
+    rhobar)``.  ``window`` is ``None`` for the full width (K2, ``tiers``
+    is then ``None``) or ``(c_pad, w1, w2)`` for the per-tile window of
+    K3-K5."""
+    dt, bvf, kappa, f0 = scalars
+    du_dz, dv_dz, rhobar = tables
+    g = geometry(params, rhobar.shape[0])
+    rt = ray_terms(fields, act, g, dt, bvf)
+    tiers = win = None
+    if window is not None:
+        lo, hi = window_bounds(rt, act)
+        tiers, win = ray_window(lo, hi, *window)
+    du = lookup(du_dz, rt.qf, win)
+    dv = lookup(dv_dz, rt.qf, win)
+    rho = lookup(rhobar, rt.qr, win) if online else None
+    tend = tendencies(fields, act, rt, du, dv, rho, dt, bvf, kappa, f0,
+                      online, faithful)
+    return tend, deposit(rt, g), tiers

@@ -4,8 +4,9 @@ kernel.
 Replaces ``msgwam_tpu/ops/rhs_pallas.py`` (``_kernel``, entry points
 ``_rhs_fused_call``, ``prepare_inputs`` and ``rhs_fused``), reached through
 ``rhs_backend="pallas", window_cells=0``.  The CUDA source is
-``csrc/rhs_fused.cu``; the flux deposit is shared with K1 in
-``csrc/deposit.cuh``.
+``csrc/rhs_fused.cu``; the per-ray physics is ``csrc/ray_physics.cuh``
+(shared with K3-K5; its twin is :mod:`.ray_physics`), the flux deposit
+``csrc/deposit.cuh`` (shared with K1).
 
 Per ray, in one pass: cg_r (with the ray's own ``phi``), the shears at
 ``r`` and ρ̄ at ``r + cg_r·dt`` by two-point interpolation from tables in
@@ -23,9 +24,9 @@ partials combined in a fixed order (the TPU kernel's cross-tile Kahan sum).
 
 :func:`rhs_fused` launches the kernel for CUDA tensors and runs the plain
 twin :func:`rhs_fused_reference` for CPU tensors; ``LAUNCHES`` counts
-kernel launches.  ``resolve_champion``, ``apply_champion`` and
-``resolve_window_cells`` of the JAX module hold TPU-tuned constants of the
-windowed kernels and are not ported.
+kernel launches.  Like the JAX module, this one also holds the window
+widths of the windowed kernels K3-K5: :func:`resolve_window_cells`,
+:func:`resolve_champion` and :func:`apply_champion`.
 """
 
 from __future__ import annotations
@@ -35,12 +36,68 @@ import torch
 from .. import _build
 from ..constants import ROT_EARTH
 from ..state import RayStatics, State
-from .projection import _reduce_partials, block_partials
+from . import ray_physics
 from .projection_cuda import n_blocks_for
 
 LAUNCHES = 0
 
 MAX_TABLE = 1025     # csrc/rhs_fused.cu kMaxTable: cell centers
+WINDOW_FLOOR = 16    # the narrowest window of K3-K5, in cells
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def c_pad_for(n_tab: int) -> int:
+    """Table length of the windowed kernels: the centers rounded up to a
+    multiple of 128 (the window is clipped to ``c_pad - W``)."""
+    return _ceil_to(max(n_tab, n_tab - 1), 128)
+
+
+def resolve_window_cells(cfg, c_pad: int) -> tuple:
+    """The two window widths ``(w1, w2)`` of the windowed kernels K3-K5
+    and of the window mirror in :mod:`msgwam_tpu_torch.diagnostics`: the
+    first has a floor of 16 cells, both round up to a multiple of 8 and
+    are capped by ``c_pad``, and the second is off (0) unless it is wider
+    than the first."""
+    w1 = min(_ceil_to(max(cfg.window_cells, WINDOW_FLOOR), 8), c_pad)
+    w2 = (min(_ceil_to(cfg.window_cells2, 8), c_pad - 8)
+          if cfg.window_cells2 > 0 else 0)
+    if w2 <= w1:
+        w2 = 0
+    return w1, w2
+
+
+def resolve_champion(n_ray: int, lifecycle: bool = False,
+                     sorted_multi_launch: bool = False) -> dict:
+    """The window widths the ``-1`` (auto) settings resolve to:
+    ``{"window_cells": 16, "window_cells2": 0}``, the floor with the second
+    tier off, at every size.
+
+    The JAX package resolves them from a ladder measured on a TPU.  None
+    of it carries over: on the H100 a lookup reads two table entries
+    whatever the window's width, so the window's cost is one reduction
+    per tile, and the card's own choice waits for a measurement.  The
+    arguments are those of the JAX function; the streamed tile height it
+    also returns belongs to the streaming kernel K6, not ported."""
+    del n_ray, lifecycle, sorted_multi_launch
+    return {"window_cells": WINDOW_FLOOR, "window_cells2": 0}
+
+
+def apply_champion(cfg, n_ray: int, sorted_multi_launch: bool = False):
+    """Resolve the ``window_cells``/``window_cells2`` auto settings (-1)
+    by :func:`resolve_champion`; explicit settings stay; returns ``cfg``
+    itself when nothing is auto."""
+    upd = {}
+    if cfg.window_cells < 0 or cfg.window_cells2 < 0:
+        ch = resolve_champion(n_ray, lifecycle=cfg.cull or cfg.relaunch,
+                              sorted_multi_launch=sorted_multi_launch)
+        if cfg.window_cells < 0:
+            upd["window_cells"] = ch["window_cells"]
+        if cfg.window_cells2 < 0:
+            upd["window_cells2"] = ch["window_cells2"]
+    return cfg.replace(**upd) if upd else cfg
 
 
 def prepare_inputs(dt, state, statics, bg, cfg):
@@ -75,43 +132,49 @@ def ray_fields(state, statics):
             statics.dkk, statics.dll, statics.rr_mm_area)
 
 
-def _check(state, statics, bg):
+def check_inputs(state, statics, bg, name: str = "rhs_fused",
+                 max_cells: int = MAX_TABLE):
+    """The kernels' input contract: float32 (a float64 state raises
+    ``TypeError``, never a silent cast), one device, contiguous ``(n,)``
+    ray fields, a bool mask, 3 to ``max_cells`` cells."""
     fields = ray_fields(state, statics)
     n = fields[0].shape[0]
     device = fields[0].device
     tensors = (("state", f) for f in fields)
-    for name, x in (*tensors, ("mean.u", state.mean.u), ("mean.v", state.mean.v),
+    for what, x in (*tensors, ("mean.u", state.mean.u), ("mean.v", state.mean.v),
                     ("bg.centers", bg.centers), ("bg.faces", bg.faces),
-                    ("bg.rhobar", bg.rhobar)):
+                    ("bg.rhobar", bg.rhobar),
+                    ("bg.pressure_gradient", bg.pressure_gradient)):
         if x.dtype != torch.float32:
-            raise TypeError(f"rhs_fused: {name} must be float32, got {x.dtype}")
+            raise TypeError(f"{name}: {what} must be float32, got {x.dtype}")
         if x.device != device:
-            raise ValueError(f"rhs_fused: {name} is on {x.device}, "
+            raise ValueError(f"{name}: {what} is on {x.device}, "
                              f"rays on {device}")
     for x in fields:
         if x.shape != (n,) or not x.is_contiguous():
-            raise ValueError(f"rhs_fused: every ray field must be a "
+            raise ValueError(f"{name}: every ray field must be a "
                              f"contiguous ({n},) tensor")
     act = statics.active
     if act.dtype != torch.bool or act.shape != (n,) or act.device != device \
             or not act.is_contiguous():
-        raise ValueError(f"rhs_fused: active must be a contiguous bool "
+        raise ValueError(f"{name}: active must be a contiguous bool "
                          f"({n},) tensor on {device}")
-    if not 3 <= bg.centers.shape[0] <= MAX_TABLE:
-        raise ValueError(f"rhs_fused: 3 to {MAX_TABLE} cells supported")
+    if not 3 <= bg.centers.shape[0] <= max_cells:
+        raise ValueError(f"{name}: 3 to {max_cells} cells supported")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
 
 
 def rhs_fused(dt, state, statics, bg, cfg):
     """Fused-RHS entry point: ``(tendencies, pm_interior)`` where
     ``tendencies`` is ``{"dens", "r", "m"}`` per ray and ``pm_interior``
-    the ``(2, n_cell - 1)`` interior flux profile.  Float32, hprop=False."""
-    _check(state, statics, bg)
+    the ``(2, n_cell - 1)`` interior flux profile.  Float32, hprop=False,
+    forward only."""
+    _build.forward_only("rhs_fused", state, statics, bg)
+    check_inputs(state, statics, bg)
     device = state.rays.r.device
     if device.type == "cpu":
         return rhs_fused_reference(dt, state, statics, bg, cfg)
-    if device.type != "cuda":
-        raise ValueError(f"rhs_fused: unsupported device {device}")
-
     return launch(*prepare_inputs(dt, state, statics, bg, cfg),
                   ray_fields(state, statics), statics.active,
                   cfg.saturate_online, cfg.faithful_saturation)
@@ -147,82 +210,14 @@ def launch(params, scalars, tables, fields, active, saturate_online: bool,
     return {"dens": dens_st, "r": drr_st, "m": dmm_st}, flux
 
 
-def _interp2(table, q):
-    """Clamped two-point interpolation at hat coordinates ``q >= 0``."""
-    i = torch.clamp(q.to(torch.int64), max=table.shape[0] - 2)
-    t = q - i.to(q.dtype)
-    return table[i] * (1.0 - t) + table[i + 1] * t
-
-
 def rhs_fused_reference(dt, state: State, statics: RayStatics, bg, cfg):
     """Plain PyTorch twin of the K2 kernel, in the state's own dtype
-    (float32 for the kernel's arithmetic, float64 for an oracle): the same
-    per-ray expressions, a dense ``(n, n_cells)`` deposit weight matrix,
-    block partials and a float64 combination."""
-    params, (dt, bvf, kappa, f0), (du_dz, dv_dz, rhobar) = prepare_inputs(
-        dt, state, statics, bg, cfg)
-    dens, r, dr, k, l, m, dm, phi, dkk, dll, area = ray_fields(state, statics)
-    act = statics.active
-    g0c, dz, g0f = params[0], params[1], params[2]
-    idz = 1.0 / dz
-    n_tab = rhobar.shape[0]
-    n_flux = n_tab - 1
-    zero = torch.zeros_like(r)
-
-    ff = 2.0 * ROT_EARTH * torch.sin(phi)
-    kh2 = k * k + l * l
-    k2 = kh2 + m * m
-    om2 = (bvf * bvf * kh2 + ff * ff * m * m) * (1.0 / k2)
-    cgr = -m * (om2 - ff * ff) * torch.rsqrt(om2) * (1.0 / k2)
-
-    # deposit inputs: indices from r * (1/dz), 1/dz folded into the values
-    r_lo = r - 0.5 * dr
-    r_up = r + 0.5 * dr
-    nzmax = n_flux - 1
-    nlow = (r_lo * idz).to(torch.int64)
-    nup = (r_up * idz + 1.0).to(torch.int64)
-    ood = ((nlow >= nzmax) & (nup >= nzmax)) | ((nlow <= 0) & (nup <= 0))
-    live = act & ~ood
-    pv = torch.abs(dkk * dll * dm)
-    fv = cgr * dens * idz
-    fvk = torch.where(live, fv * k * pv, zero)
-    fvl = torch.where(live, fv * l * pv, zero)
-    nlow = torch.clamp(nlow, 0, nzmax)
-    nup = torch.clamp(nup, 0, nzmax)
-
-    qf = (torch.clamp(r, g0f, g0f + (n_tab - 2.0) * dz) - g0f) * idz
-    dmm_st = -(k * _interp2(du_dz, qf) + l * _interp2(dv_dz, qf))
-
-    if cfg.saturate_online:
-        r_fin = r + cgr * dt
-        qr = (torch.clamp(r_fin, g0c, g0c + (n_tab - 1.0) * dz) - g0c) * idz
-        rho = _interp2(rhobar, qr)
-        m_fin = m + dmm_st * dt
-        dmm_fin = area / dr
-        omh2 = (bvf * bvf * kh2 + f0 * f0 * m * m) * (1.0 / k2)
-        cap = (kappa * kappa * 0.5 * rho * omh2 * torch.rsqrt(omh2) * bvf * bvf
-               / (m_fin * m_fin * (omh2 - f0 * f0)))
-        pvol = dkk * dll * dmm_fin
-        cap_applied = cap if cfg.faithful_saturation else cap / pvol
-        dens_st = torch.where(cap < dens * pvol,
-                              (cap_applied - dens) * (1.0 / dt), zero)
-    else:
-        dens_st = zero
-
-    c = torch.arange(n_flux, device=r.device)
-    cf = c.to(r.dtype)
-    face_lo = g0c + cf * dz
-    face_hi = g0c + (cf + 1.0) * dz
-    in_span = (c >= nlow[:, None]) & (c < nup[:, None])
-    w = torch.abs(torch.minimum(face_hi, r_up[:, None])
-                  - torch.maximum(face_lo, r_lo[:, None]))
-    w = torch.where(in_span, w, torch.zeros_like(w))
-    flux = _reduce_partials(block_partials(torch.stack([fvk, fvl]), w),
-                            "f64", r.dtype)
-
-    tend = {
-        "dens": torch.where(act, dens_st, zero),
-        "r": torch.where(act, cgr, zero),
-        "m": torch.where(act, dmm_st, zero),
-    }
+    (float32 for the kernel's arithmetic, float64 for an oracle): the
+    per-ray physics of :mod:`.ray_physics` at full width, a dense
+    ``(n, n_cells)`` deposit weight matrix, block partials and a float64
+    combination."""
+    params, scalars, tables = prepare_inputs(dt, state, statics, bg, cfg)
+    tend, flux, _ = ray_physics.fused(
+        params, scalars, tables, ray_fields(state, statics), statics.active,
+        cfg.saturate_online, cfg.faithful_saturation)
     return tend, flux

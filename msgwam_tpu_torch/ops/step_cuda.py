@@ -1,0 +1,263 @@
+"""K5: whole RK3 steps of the coupled model per launch, as a hand-written
+persistent cooperative Hopper kernel.
+
+Replaces ``msgwam_tpu/ops/step_pallas.py`` (``_kernel``, entry points
+``_megakernel_call``, ``_simulate_resident_impl`` and
+``simulate_resident``).  The CUDA source is ``csrc/step_resident.cu``.
+:func:`simulate_resident` runs ``run.n_steps`` steps as
+``n_steps // save_every`` launches, each of ``save_every`` whole steps:
+per stage the windowed RHS of K3 with the RK3 update of dens/r/m in place,
+a grid-wide reduce of the flux, and the wind's stage update in every
+block; in offline mode the direct saturation with finite-difference rates
+(quirk 2 included) after the third stage.
+
+Not ported from the JAX module: ``build_operators``/``_host_linear_map``
+(matrices that fed the TPU's matrix unit; the kernel takes the shear and
+the flux divergence as differences) and the 131,072-ray cap of the TPU's
+fast memory (the rays live in device memory, so any count that fits the
+card runs).  The lifecycle (``cfg.cull``, ``cfg.relaunch``) and a
+prescribed ``wind_fn`` raise ``NotImplementedError``: the JAX package runs
+them in the streaming kernel K6, not ported yet.
+
+Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
+(else ``ValueError``), forward only.  For CPU tensors each launch runs
+the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from ..constants import ROT_EARTH
+from ..state import MeanState, State, tree_map
+from . import ray_physics, rhs_cuda
+
+LAUNCHES = 0
+
+MAX_PAD = 256        # csrc/step_resident.cu kResidentPad: c_pad, at most
+
+
+class Operands(NamedTuple):
+    """What a launch reads besides the evolving state: host scalars,
+    run-constant ray fields and the background's columns."""
+
+    scalars: tuple         # g0c dz g0f dzf dt bvf kappa f0 rdiv
+    n_tab: int
+    c_pad: int
+    w1: int
+    w2: int
+    frozen: tuple          # dr k l dm phi dkk dll area (float32, (n,))
+    active: torch.Tensor
+    rhobar: torch.Tensor   # (n_tab,)
+    pg: torch.Tensor       # (2, n_tab)
+    inv_rho: torch.Tensor  # (n_tab,) 1 / rhobar, as the TPU kernel
+    online: bool
+    prognostic: bool
+    faithful: bool
+
+
+def operands(state, statics, bg, cfg, dt) -> Operands:
+    """The launch operands for a checked float32 state."""
+    n_tab = bg.centers.shape[0]
+    c_pad = rhs_cuda.c_pad_for(n_tab)
+    w1, w2 = rhs_cuda.resolve_window_cells(cfg, c_pad)
+    centers, faces = bg.centers.tolist(), bg.faces.tolist()
+    rdiv = 1.0 if cfg.faithful_offline_rates else float(dt)
+    scalars = (centers[0], centers[1] - centers[0], faces[1], faces[1] - faces[0],
+               float(dt), float(cfg.bvf), float(cfg.kappa),
+               2.0 * ROT_EARTH * math.sin(cfg.phi0), rdiv)
+    rays = state.rays
+    return Operands(
+        scalars, n_tab, c_pad, w1, w2,
+        (rays.dr, rays.k, rays.l, rays.dm, rays.phi, statics.dkk, statics.dll,
+         statics.rr_mm_area),
+        statics.active, bg.rhobar, bg.pressure_gradient.contiguous(),
+        1.0 / torch.clamp(bg.rhobar, min=1e-30),
+        bool(cfg.saturate_online), bool(cfg.prognostic_mean),
+        bool(cfg.faithful_saturation))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def launch(ops: Operands, dens, r, m, uv, n_steps: int):
+    """One launch of ``n_steps`` whole steps on the card: updates ``dens``,
+    ``r``, ``m`` and the ``(2, n_tab)`` wind ``uv`` in place and returns
+    ``(dens, r, m, uv, dens_prop)``, ``dens_prop`` the density before the
+    last step's offline saturation (a copy of ``dens`` online)."""
+    global LAUNCHES
+    lib = _build.library()
+    n = dens.shape[0]
+    device = dens.device
+    with torch.cuda.device(device):
+        nb = ctypes.c_int(0)
+        _build.check(lib.msgwam_step_resident_blocks(n, ctypes.addressof(nb)),
+                     "msgwam_step_resident_blocks")
+        nb = nb.value
+        qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
+        r_prev = m_prev = dens_prop = None
+        if not ops.online:
+            r_prev, m_prev, dens_prop = (torch.empty_like(dens) for _ in range(3))
+        n_flux = ops.n_tab - 1
+        flux = torch.empty((2, n_flux), dtype=torch.float32, device=device)
+        partials = torch.empty((nb, 2, n_flux), dtype=torch.float64,
+                               device=device)
+        err = lib.msgwam_step_resident(
+            *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
+            *(x.data_ptr() for x in ops.frozen), ops.active.data_ptr(), n,
+            dens.data_ptr(), r.data_ptr(), m.data_ptr(),
+            qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
+            _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
+            uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
+            ops.inv_rho.data_ptr(), flux.data_ptr(), partials.data_ptr(), nb,
+            n_steps, int(ops.online), int(ops.prognostic), int(ops.faithful),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _build.check(err, "msgwam_step_resident")
+    LAUNCHES += 1
+    return dens, r, m, uv, dens.clone() if ops.online else dens_prop
+
+
+def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int):
+    """Plain PyTorch twin of one launch (any device, the inputs' dtype):
+    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing."""
+    g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv = ops.scalars
+    params = torch.tensor([g0c, dz, g0f], dtype=dens.dtype, device=dens.device)
+    g = ray_physics.geometry(params, ops.n_tab)
+    window = (ops.c_pad, ops.w1, ops.w2)
+    dr, k, l, dm, phi, dkk, dll, area = ops.frozen
+    act = ops.active
+    u, v = uv[0], uv[1]
+    dens_prop = dens
+    for _ in range(n_steps):
+        r_prev, m_prev = r, m
+        qd = qr = qm = qu = qv = None
+        for cc, bc, first in ray_physics.RK3_STAGES:
+            tables = ((u[1:] - u[:-1]) / dz, (v[1:] - v[:-1]) / dz, ops.rhobar)
+            fields = (dens, r, dr, k, l, m, dm, phi, dkk, dll, area)
+            tend, flux, _ = ray_physics.fused(params, (dt, bvf, kappa, f0), tables,
+                                              fields, act, ops.online,
+                                              ops.faithful, window)
+            dens, qd = ray_physics.rk3_stage(tend["dens"], dens, qd, dt, cc, bc, first)
+            r, qr = ray_physics.rk3_stage(tend["r"], r, qr, dt, cc, bc, first)
+            m, qm = ray_physics.rk3_stage(tend["m"], m, qm, dt, cc, bc, first)
+            if ops.prognostic:
+                pm_flux = torch.cat([flux[:, :1], flux, flux[:, -1:]], dim=1)
+                grad = (pm_flux[:, 1:] - pm_flux[:, :-1]) / dzf
+                du = f0 * v - (ops.pg[0] + grad[0]) * ops.inv_rho
+                dv = -f0 * u - (ops.pg[1] + grad[1]) * ops.inv_rho
+                u, qu = ray_physics.rk3_stage(du, u, qu, dt, cc, bc, first)
+                v, qv = ray_physics.rk3_stage(dv, v, qv, dt, cc, bc, first)
+        dens_prop = dens
+        if not ops.online:
+            dens = _offline_saturation(ops, g, dens, r, m, r_prev, m_prev)
+    return dens, r, m, torch.stack([u, v]), dens_prop
+
+
+def _offline_saturation(ops: Operands, g, dens, r, m, r_prev, m_prev):
+    """The direct saturation after a step, with finite-difference rates
+    (quirk 2: the height rate divided by ``rdiv``), rho read at
+    ``r_prev + rate·dt`` through a W-wide window (``step_pallas.py:404-483``)."""
+    _, _, _, _, dt, bvf, kappa, f0, rdiv = ops.scalars
+    dr, k, l, dm, phi, dkk, dll, area = ops.frozen
+    act = ops.active
+    r_fin = r_prev + (r - r_prev) / rdiv * dt
+    m_fin = m_prev + (m - m_prev) / dt * dt
+    qr = (torch.clamp(r_fin, g.g0c, g.hi_c) - g.g0c) / g.dz
+    lo = torch.where(act, torch.floor(qr) - 1.0, ray_physics.EMPTY_LO)
+    hi = torch.where(act, torch.floor(qr) + 2.0, ray_physics.EMPTY_HI)
+    _, win = ray_physics.ray_window(lo, hi, ops.c_pad, ops.w1, 0)
+    rho = ray_physics.lookup(ops.rhobar, qr, win)
+    kh2 = k * k + l * l
+    omh2 = (bvf * bvf * kh2 + f0 * f0 * m_prev * m_prev) \
+        * (1.0 / (kh2 + m_prev * m_prev))
+    cap = (kappa * kappa * 0.5 * rho * omh2 * torch.rsqrt(omh2) * bvf * bvf
+           / (m_fin * m_fin * (omh2 - f0 * f0)))
+    pvol = dkk * dll * (area / dr)
+    cap_applied = cap if ops.faithful else cap / pvol
+    return torch.where((cap < dens * pvol) & act, cap_applied, dens)
+
+
+def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
+                      source=None, wind_fn=None, t0: float = 0.0,
+                      launch_sort=None, observe=None, source_key=None):
+    """Drop-in fast path for :func:`msgwam_tpu_torch.simulate`: whole RK3
+    steps per launch of K5, with the JAX package's signature.
+
+    ``observe(state, statics, aux)`` reduces each history frame as in
+    ``simulate``; without it the history is the default ``(State, active,
+    dens_prop)`` stacked per save point.  ``include_t0`` prepends the
+    initial state.  The lifecycle (``cfg.cull``/``cfg.relaunch``) and
+    ``wind_fn`` raise ``NotImplementedError`` (the JAX package routes them
+    to the streaming kernel K6).  ``source``, ``source_key``, ``t0`` and
+    ``launch_sort`` are read only on that route and are ignored here.
+    Forward only."""
+    if cfg.cull or cfg.relaunch or wind_fn is not None:
+        raise NotImplementedError(
+            "simulate_resident with cull, relaunch or wind_fn needs the "
+            "streaming whole-run kernel K6 (ROADMAP queue 2), which is not "
+            "ported yet")
+    del source, source_key, t0, launch_sort
+    _build.forward_only("simulate_resident", state, statics, bg)
+    return _simulate_resident_impl(state, statics, bg, cfg, run,
+                                   include_t0=include_t0, observe=observe)
+
+
+def _simulate_resident_impl(state, statics, bg, cfg, run,
+                            include_t0: bool = False, observe=None):
+    """``run.n_steps // run.save_every`` launches of ``save_every`` steps
+    each; returns ``(final_state, statics, history)``.  The frozen ray
+    fields (lam, phi, dr, k, l, dm) come from the initial state."""
+    from ..models.integrate import StepAux
+
+    if cfg.hprop:
+        raise ValueError("simulate_resident requires hprop=False")
+    for name, arr in (("state.rays.dens", state.rays.dens),
+                      ("state.mean.u", state.mean.u)):
+        if arr.dtype != torch.float32:
+            raise TypeError(
+                f"simulate_resident computes in float32 but {name} has dtype "
+                f"{arr.dtype}; build the state with dtype=float32 (or use "
+                f"simulate() for the float64 parity path)")
+    rhs_cuda.check_inputs(state, statics, bg, "simulate_resident", MAX_PAD)
+    if run.n_steps % run.save_every:
+        raise ValueError("n_steps must be divisible by save_every")
+    rays, mean = state.rays, state.mean
+    cfg = rhs_cuda.apply_champion(cfg, rays.r.shape[0])
+    ops = operands(state, statics, bg, cfg, run.dt)
+    chunk = launch if rays.r.device.type == "cuda" else step_resident_reference
+
+    def to_state(dens, r, m, uv):
+        return State(rays._replace(dens=dens.clone(), r=r.clone(), m=m.clone()),
+                     MeanState(uv[0].clone(), uv[1].clone()))
+
+    carry = (rays.dens.clone(), rays.r.clone(), rays.m.clone(),
+             torch.stack([mean.u, mean.v]))
+    frames, props = [], []
+    with torch.no_grad():
+        for _ in range(run.n_steps // run.save_every):
+            *carry, prop = chunk(ops, *carry, run.save_every)
+            frames.append(to_state(*carry))
+            props.append(prop)
+    final = to_state(*carry)
+
+    if observe is not None:
+        hist = [observe(s, statics, StepAux(dens_prop=p))
+                for s, p in zip(frames, props)]
+        if include_t0:
+            hist.insert(0, observe(state, statics,
+                                   StepAux(dens_prop=rays.dens)))
+        return final, statics, tree_map(lambda *xs: torch.stack(xs), *hist)
+    if include_t0:
+        frames.insert(0, state)
+        props.insert(0, rays.dens)
+    history_state = tree_map(lambda *xs: torch.stack(xs), *frames)
+    active = torch.stack([statics.active] * len(frames))
+    return final, statics, (history_state, active, torch.stack(props))

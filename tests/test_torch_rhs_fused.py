@@ -133,13 +133,18 @@ def test_k2_twin_matches_msgwam_tpu_xla(mode):
 
 
 def test_pallas_rhs_windowed_raises():
+    """The fused kernels take float32 only: a float64 state raises on the
+    full-width (K2) and the windowed (K3, the default ``window_cells=-1``)
+    route alike, never a silent cast."""
     cfg, tcfg, bg, state, statics = _setup(n=16, pad_to=16)
-    s, st, b = _port(state, statics, bg)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        torch_rhs(120.0, s, st, b, tcfg.replace(rhs_backend="pallas"))
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    for window_cells in (-1, 0):
+        with pytest.raises(TypeError, match="float32"):
+            torch_rhs(120.0, s64, st64, b64,
+                      tcfg.replace(rhs_backend="pallas",
+                                   window_cells=window_cells))
     with pytest.raises(TypeError):
-        rhs_cuda.rhs_fused(120.0, *mtt.from_numpy((state, statics, bg),
-                                                  dtype="float64"), tcfg)
+        rhs_cuda.rhs_fused(120.0, s64, st64, b64, tcfg)
 
 
 @pytest.mark.cuda
