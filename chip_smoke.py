@@ -41,7 +41,23 @@ use), then, in order:
    two runs bitwise equal, times; then 1e6 rays for 20 steps;
 8. K1 on its route: 5 steps with ``rhs_backend="xla",
    projection_backend="pallas"`` at 1e5 rays: 15 K1 launches, within 1e-4
-   of the dense ``mxu`` path.
+   of the dense ``mxu`` path;
+10. Path D, ``BASELINE.json`` ``configs[3]`` (``benchmarks/run.py:403-418``):
+   ``simulate_resident`` with cull, relaunch, ``m_max = 2 pi/300``, a tidal
+   ``wind_fn`` and ``prognostic_mean=False`` at 1e5 rays for 720 steps
+   with ``save_every=72``: exactly 10 K6 launches and no other kernel, the
+   culls and relaunches of the day (nonzero), K6 against its twin over 9
+   steps (3e-5, masks equal; also at ``m_max = pi/1500``, where culls fire
+   in those steps, with relaunch and without), K6 with the
+   lifecycle off bitwise K5, the day's wall against Path C (``simulate``
+   with the lifecycle, K4) and Path B (K5, no lifecycle), and a profile;
+11. the launch sort at 1e6 rays over the Path D day: sorted and unsorted
+   runs in turns, bitwise the same rays, both day walls;
+12. Path E, ``configs[4]`` (``benchmarks/run.py:420-434``): 8 members of
+   125,000 rays in one K7 launch per 72 steps over a day: exactly 10 K7
+   launches, members 0 and 7 of a perturbed ensemble within 1e-5 of their
+   own K6 runs over 9 steps, K7 against its twin over 3 steps, and the
+   day's wall against 8 sequential K6 days.
 
 Any failed check raises and the exit code is nonzero.  Without a CUDA
 device the script fails at once.  Its second-to-last lines are a JSON
@@ -64,7 +80,8 @@ import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch import _build
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
 from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
-                                  rhs_cuda_windowed, step_cuda)
+                                  rhs_cuda_windowed, step_cuda, step_cuda_stream)
+from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
 
 SEED = 0
 N_MAIN = 100_000
@@ -76,7 +93,11 @@ F64_BAR = 1e-6         # deposit vs the float64 twin, relative to the maximum
 TRAJ_BAR = 1e-4        # 5-step trajectories, as tests/test_rhs_fused.py
 RESIDENT_BAR = 3e-5    # 9-step whole runs, as tests/test_megakernel.py
 RESIDENT_STEPS = 72    # steps per K5 launch in the day
-KERNEL_COUNTS = (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda)
+KERNEL_COUNTS = (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
+                 step_cuda_stream)
+STREAM_STEPS = 72      # steps per K6/K7 launch in the day, as K5's
+M_MAX_D = 2.0 * math.pi / 300.0    # configs[3] (benchmarks/run.py:407)
+N_MEMBERS, N_PER_MEMBER = 8, 125_000   # configs[4] (benchmarks/run.py:425-428)
 
 
 def log(*a):
@@ -104,11 +125,11 @@ def reset_launches():
 
 
 def launches() -> dict:
-    """The launch count of every kernel: K1-K5."""
+    """The launch count of every kernel: K1-K7."""
     return {"K1": projection_cuda.LAUNCHES, "K2": rhs_cuda.LAUNCHES,
             "K3": rhs_cuda_windowed.LAUNCHES["rhs_fused_windowed"],
             "K4": rhs_cuda_windowed.LAUNCHES["rk3_step_fused_windowed"],
-            "K5": step_cuda.LAUNCHES}
+            "K5": step_cuda.LAUNCHES, **step_cuda_stream.LAUNCHES}
 
 
 def expect_launches(what: str, **want):
@@ -645,6 +666,323 @@ def phase_k1_route(device) -> dict:
     return {"launches": counts["K1"], "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# Paths D and E: the lifecycle, the launch sort and the ensemble (K6, K7)
+# ---------------------------------------------------------------------------
+
+def path_d_setup(n: int, device, **cfg_kw):
+    """configs[3] (benchmarks/run.py:403-418): the bench population with
+    online saturation, cull, relaunch from the launch population itself,
+    m_max = 2 pi/300, ``prognostic_mean=False`` and a tidal ``wind_fn``;
+    ``window_cells=24`` as there."""
+    cfg, bg, state, statics = bench_setup(n, device, **{
+        "window_cells": 24, "cull": True, "relaunch": True, "m_max": M_MAX_D,
+        "prognostic_mean": False, **cfg_kw})
+    centers = torch.tensor(mtt.GridConfig().centers(), dtype=torch.float32,
+                           device=device)
+    wind = lambda t: (mtt.tidal_shear(centers, t.to(device), cfg),
+                      torch.zeros_like(centers))
+    return cfg, bg, state, statics, (state.rays, statics), wind
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stream_twin(state, statics, bg, cfg, run, source=None, wind=None):
+    """K6's twin over a run, launch by launch: ``(dens, r, m, uv, prop,
+    act)`` in slot order (no launch sort)."""
+    ops = step_cuda.operands(state, statics, bg, cfg, run.dt)
+    src = step_cuda_stream._template(source, state.rays.r) if source else None
+    life = (step_cuda_stream.lifecycle_for(bg, cfg, src)
+            if cfg.cull or cfg.relaunch else None)
+    out = (state.rays.dens, state.rays.r, state.rays.m,
+           torch.stack([state.mean.u, state.mean.v])[None], None,
+           statics.active.to(torch.uint8))
+    for ci in range(run.n_steps // run.save_every):
+        w = None if wind is None else step_cuda_stream._wind_table(
+            wind, 0.0, ci, run.save_every, run.dt, bg.centers.shape[0],
+            state.rays.r.device)
+        out = step_cuda_stream.step_stream_reference(
+            ops, out[0], out[1], out[2], out[3], out[5], run.save_every, life, w)
+    return out
+
+
+def masked_errs(want, got, both) -> dict:
+    """Relative errors of dens, r, m on the slots both masks hold."""
+    z = lambda x: torch.where(both, x, torch.zeros_like(x))
+    return {f: rel(z(w), z(g)) for f, w, g in zip(("dens", "r", "m"), want, got)}
+
+
+def k6_vs_twin(cfg, bg, state, statics, source, wind, label: str) -> dict:
+    """K6 against its twin over 9 steps in 3 launches.  Mask flips are a
+    discrete event (a ulp on a borderline cull relaunches a ray): any are
+    reported and held to the twin's own sensitivity, its flips under a
+    1e-7 density perturbation (tests/test_lifecycle_kernel.py:179-234),
+    and the fields are compared on the slots both masks hold."""
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=3)
+    got, gst, ghist = mtt.simulate_resident(state, statics, bg, cfg, run9,
+                                            source=source, wind_fn=wind)
+    dens, r, m, uv, prop, act = stream_twin(state, statics, bg, cfg, run9,
+                                            source, wind)
+    act = act.bool()
+    flips = int((act != gst.active).sum())
+    calib = None
+    both = act & gst.active
+    errs = masked_errs((dens, r, m), (got.rays.dens, got.rays.r, got.rays.m), both)
+    errs["u"] = rel(uv[0, 0], got.mean.u)
+    errs["dens_prop"] = rel(torch.where(both, prop, 0 * prop),
+                            torch.where(both, ghist[2][-1], 0 * prop))
+    if flips:
+        sp = state._replace(rays=state.rays._replace(dens=state.rays.dens * (1 + 1e-7)))
+        calib = int((stream_twin(sp, statics, bg, cfg, run9, source, wind)[5].bool()
+                     != act).sum())
+        check(flips <= 3 * max(calib, 2), f"K6 {label}: {flips} mask flips "
+              f"against the twin's own {calib}")
+    abs_err = max(float((x.double() - y.double()).abs().max()) for x, y in
+                  ((dens, got.rays.dens), (r, got.rays.r), (m, got.rays.m)))
+    res = {"errs": errs, "flips": flips, "flip_calibration": calib,
+           "active_end": int(gst.active.sum()), "max_abs_err": abs_err}
+    log(f"[10]   9 steps, K6 vs twin ({label}): {fmt(errs)}; mask flips {flips}"
+        f" (calibration {calib}); active at the end {res['active_end']}")
+    for k, v in errs.items():
+        check(v < RESIDENT_BAR, f"K6 9 steps {label} {k}")
+    return res
+
+
+def phase_path_d(device, smi: str) -> dict:
+    """configs[3]: simulate_resident with the lifecycle, K6."""
+    cfg, bg, state, statics, source, wind = path_d_setup(N_MAIN, device)
+    day = mtt.RunConfig(dt=DT, n_steps=DAY_STEPS, save_every=STREAM_STEPS)
+    mtt.simulate_resident(state, statics, bg, cfg,
+                          mtt.RunConfig(dt=DT, n_steps=2, save_every=1),
+                          source=source, wind_fn=wind)
+    reset_launches()
+    (final, fst, hist), wall = timed(lambda: mtt.simulate_resident(
+        state, statics, bg, cfg, day, source=source, wind_fn=wind))
+    counts = expect_launches("Path D day", K6=DAY_STEPS // STREAM_STEPS)
+    check(finite(final), "Path D final state is not finite")
+    check(hist[0].rays.r.shape == (DAY_STEPS // STREAM_STEPS, N_MAIN),
+          "Path D history layout")
+    rate = N_MAIN * DAY_STEPS / wall
+
+    # culls and relaunches over the day: a step-by-step run whose frames
+    # count the slots refilled in the step (back at their launch height:
+    # every live ray moves), and a cull-only day
+    step1 = mtt.RunConfig(dt=DT, n_steps=DAY_STEPS, save_every=1)
+    _, _, refills = step_cuda_stream.simulate_streaming(
+        state, statics, bg, cfg, step1, source=source, wind_fn=wind,
+        observe=lambda s, st, aux: (s.rays.r == source[0].r).sum())
+    relaunched = int(refills.sum())
+    _, cull_st, _ = mtt.simulate_resident(state, statics, bg,
+                                          cfg.replace(relaunch=False), day,
+                                          wind_fn=wind)
+    culled = int(N_MAIN - cull_st.active.sum())
+    log(f"[10] Path D (configs[3]) n={N_MAIN}, {DAY_STEPS} steps, save_every "
+        f"{STREAM_STEPS}: launches {counts}; sim_day_wall_s {wall:.4f}, "
+        f"ray-steps/s {rate:.4e} on {smi}; relaunches over the day "
+        f"{relaunched}, rays culled in a cull-only day {culled}")
+    check(relaunched > 0 and culled > 0, "Path D: no cull or relaunch fired")
+
+    prof = profile_run(lambda: mtt.simulate_resident(
+        state, statics, bg, cfg, day, source=source, wind_fn=wind), DAY_STEPS)
+    log(f"[10]   profiler over the day: {prof}")
+
+    twin = {"configs3": k6_vs_twin(cfg, bg, state, statics, source, wind,
+                                   "m_max 2pi/300")}
+    # at m_max = pi/1500 the launch population's largest |m| is culled at
+    # once: the cull-only run must lose rays, the relaunch run refill them
+    cfg_f = cfg.replace(m_max=math.pi / 1500.0)
+    twin["fires"] = k6_vs_twin(cfg_f, bg, state, statics, source, wind,
+                               "m_max pi/1500")
+    check(twin["fires"]["active_end"] == N_MAIN, "relaunch refills every slot")
+    twin["fires_cull_only"] = k6_vs_twin(cfg_f.replace(relaunch=False), bg,
+                                         state, statics, None, wind,
+                                         "m_max pi/1500, cull only")
+    check(twin["fires_cull_only"]["active_end"] < N_MAIN,
+          "no cull fired in the 9-step twin check")
+
+    # K6 with the lifecycle off against K5 (one source, two instantiations)
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=3)
+    plain = cfg.replace(cull=False, relaunch=False)
+    bitwise = {}
+    for prog in (False, True):
+        c = plain.replace(prognostic_mean=prog)
+        a, _, _ = mtt.simulate_resident(state, statics, bg, c, run9)
+        b, _, _ = step_cuda_stream.simulate_streaming(state, statics, bg, c, run9)
+        bitwise[f"prognostic_{prog}"] = all(
+            torch.equal(x, y) for x, y in zip((*a.rays, *a.mean), (*b.rays, *b.mean)))
+        if not bitwise[f"prognostic_{prog}"]:
+            check(max(traj_errs(a, b).values()) < RESIDENT_BAR,
+                  f"K6 off vs K5, prognostic {prog}")
+    log(f"[10]   K6 with the lifecycle off vs K5, 9 steps: bitwise {bitwise}")
+    check(bitwise["prognostic_False"], "K6 off vs K5 not bitwise")
+
+    # the same day on Path C (simulate with the lifecycle, K4) and Path B
+    # (K5, the population without the lifecycle)
+    cfg_c = cfg.replace(window_cells=-1)
+    run_c = mtt.RunConfig(dt=DT, n_steps=DAY_STEPS, save_every=DAY_STEPS)
+    mtt.simulate(state, statics, bg, cfg_c, mtt.RunConfig(dt=DT, n_steps=2,
+                                                         save_every=2),
+                 source=source, wind_fn=wind)
+    (fc, stc, _), wall_c = timed(lambda: mtt.simulate(
+        state, statics, bg, cfg_c, run_c, source=source, wind_fn=wind))
+    check(finite(fc), "Path C final state is not finite")
+    (_, _, _), wall_b = timed(lambda: mtt.simulate_resident(
+        state, statics, bg, plain, day))
+    log(f"[10]   the day: Path D {wall:.4f} s, Path C (simulate + lifecycle, "
+        f"K4) {wall_c:.4f} s ({N_MAIN * DAY_STEPS / wall_c:.4e} ray-steps/s), "
+        f"Path B (K5, no lifecycle) {wall_b:.4f} s "
+        f"({N_MAIN * DAY_STEPS / wall_b:.4e})")
+
+    # one launch of one step: device time of K6 and its twin
+    ops = step_cuda.operands(state, statics, bg, cfg, DT)
+    src = step_cuda_stream._template(source, state.rays.r)
+    life = step_cuda_stream.lifecycle_for(bg, cfg, src)
+    uv = torch.stack([state.mean.u, state.mean.v])[None].contiguous()
+    w1 = step_cuda_stream._wind_table(wind, 0.0, 0, 1, DT, bg.centers.shape[0],
+                                      device)
+    act = statics.active.to(torch.uint8)
+    work = [x.clone() for x in (state.rays.dens, state.rays.r, state.rays.m, uv)]
+    work_act = act.clone()
+    ms = cuda_ms(lambda: step_cuda_stream.launch(ops, *work, work_act, 1, life, w1))
+    plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
+        ops, state.rays.dens, state.rays.r, state.rays.m, uv, act, 1, life, w1),
+        iters=3)
+    log(f"[10]   one launch of one step: K6 {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    return {"launches": counts["K6"], "sim_day_wall_s": wall,
+            "ray_steps_per_s": rate, "relaunched": relaunched, "culled": culled,
+            "profile": prof, "twin": twin, "k5_bitwise": bitwise,
+            "path_c_sim_day_wall_s": wall_c, "path_b_sim_day_wall_s": wall_b,
+            "max_abs_err": max(t["max_abs_err"] for t in twin.values()),
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_launch_sort(device, smi: str) -> dict:
+    """The Path D day at 1e6 rays, launch-sorted against unsorted, in
+    turns.  The mean wind is prescribed, so every ray evolves on its own
+    and both runs must give bitwise the same rays."""
+    n = 1_000_000
+    cfg, bg, state, statics, source, wind = path_d_setup(n, device)
+    day = mtt.RunConfig(dt=DT, n_steps=DAY_STEPS, save_every=STREAM_STEPS)
+    short = mtt.RunConfig(dt=DT, n_steps=4, save_every=2)
+    obs = lambda s, st, aux: st.active.sum()
+    for sort in (False, True):
+        mtt.simulate_resident(state, statics, bg, cfg, short, source=source,
+                              wind_fn=wind, launch_sort=sort, observe=obs)
+    walls, finals = {False: [], True: []}, {}
+    for sort in (False, True, True, False):
+        (fin, fst, _), w = timed(lambda: mtt.simulate_resident(
+            state, statics, bg, cfg, day, source=source, wind_fn=wind,
+            launch_sort=sort, observe=obs))
+        walls[sort].append(w)
+        finals[sort] = (fin, fst)
+    same = all(torch.equal(x, y) for x, y in zip(
+        (*finals[False][0].rays, finals[False][1].active),
+        (*finals[True][0].rays, finals[True][1].active)))
+    log(f"[11] launch sort, n={n}, {DAY_STEPS} steps, save_every {STREAM_STEPS}"
+        f" on {smi}: sim_day_wall_s unsorted {walls[False]}, sorted "
+        f"{walls[True]}; rays bitwise equal {same}")
+    check(same, "launch sort changed the rays")
+    return {"n": n, "unsorted_s": walls[False], "sorted_s": walls[True],
+            "bitwise": same}
+
+
+def ensemble_members(device, scale: float):
+    """configs[4]'s members (benchmarks/run.py:420-434: the bench
+    population at 125,000 rays, online saturation, prognostic mean, no
+    lifecycle), member e's amplitude scaled by 1 + scale e."""
+    cfg, bg, state, statics = bench_setup(N_PER_MEMBER, device, window_cells=24)
+    members = []
+    for e in range(N_MEMBERS):
+        rays = state.rays._replace(dens=state.rays.dens * (1.0 + scale * e))
+        members.append((state._replace(rays=rays), statics))
+    return cfg, bg, members
+
+
+def phase_path_e(device, smi: str) -> dict:
+    """configs[4]: the 8-member ensemble in one K7 launch per 72 steps."""
+    cfg, bg, members = ensemble_members(device, 0.0)
+    states, statics = stack_ensemble(members)
+    day = mtt.RunConfig(dt=DT, n_steps=DAY_STEPS, save_every=STREAM_STEPS)
+    ensemble_simulate(states, statics, bg, cfg,
+                      mtt.RunConfig(dt=DT, n_steps=2, save_every=1), backend="mega")
+    reset_launches()
+    (fin, _, mh), wall = timed(lambda: ensemble_simulate(
+        states, statics, bg, cfg, day, backend="mega"))
+    counts = expect_launches("Path E day", K7=DAY_STEPS // STREAM_STEPS)
+    check(finite(fin), "Path E final state is not finite")
+    check(tuple(mh.u.shape) == (N_MEMBERS, DAY_STEPS // STREAM_STEPS, 100),
+          "Path E history layout")
+    walls_seq = []
+    for s1, st1 in members:
+        _, w = timed(lambda: step_cuda_stream.simulate_streaming(
+            s1, st1, bg, cfg, day))
+        walls_seq.append(w)
+    rate = N_MEMBERS * N_PER_MEMBER * DAY_STEPS / wall
+    prof = profile_run(lambda: ensemble_simulate(states, statics, bg, cfg, day,
+                                                 backend="mega"), DAY_STEPS)
+    log(f"[12] Path E (configs[4]) {N_MEMBERS} x {N_PER_MEMBER}, {DAY_STEPS} "
+        f"steps: launches {counts}; sim_day_wall_s {wall:.4f}, ray-steps/s "
+        f"{rate:.4e}; {N_MEMBERS} sequential K6 days {sum(walls_seq):.4f} s on {smi}")
+    log(f"[12]   profiler over the day: {prof}")
+
+    # members of a perturbed ensemble against their own K6 runs, 9 steps
+    cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
+    sp, stp = stack_ensemble(mem_p)
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=3)
+    fe, _, mhe = step_cuda_stream.simulate_streaming_ensemble(sp, stp, bg_p,
+                                                              cfg_p, run9)
+    member_errs = {}
+    for e in (0, N_MEMBERS - 1):
+        f1, _, h1 = step_cuda_stream.simulate_streaming(*mem_p[e], bg_p, cfg_p,
+                                                        run9)
+        errs = {f: rel(getattr(f1.rays, f), getattr(fe.rays, f)[e])
+                for f in ("dens", "r", "m")}
+        errs["u"] = rel(f1.mean.u, fe.mean.u[e])
+        errs["u_history"] = rel(h1[0].mean.u, mhe.u[:, e])
+        member_errs[e] = errs
+        for k, v in errs.items():
+            check(v < 1e-5, f"K7 member {e} vs its K6 run, {k}")
+    check(rel(fe.mean.u[0], fe.mean.u[-1]) > 1e-6, "the members do not differ")
+    log(f"[12]   9 steps, members vs their own K6 runs: {member_errs}")
+
+    # K7 against its twin over 3 steps, and one launch of one step
+    flat = step_cuda_stream._flat
+    fstate = mtt.State(flat(sp.rays), mtt.MeanState(sp.mean.u[0], sp.mean.v[0]))
+    fstat = flat(stp)
+    ops = step_cuda.operands(fstate, fstat, bg_p, cfg_p, DT)
+    uv = torch.stack([sp.mean.u, sp.mean.v], dim=1).contiguous()
+    act = fstat.active.to(torch.uint8)
+    base = (fstate.rays.dens, fstate.rays.r, fstate.rays.m)
+    work = [x.clone() for x in (*base, uv)]
+    k7 = step_cuda_stream.launch(ops, *work, act.clone(), 3, n_members=N_MEMBERS)
+    tw = step_cuda_stream.step_stream_reference(ops, *base, uv, act, 3,
+                                                n_members=N_MEMBERS)
+    twin_errs = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m"), tw, k7)}
+    twin_errs["u"] = rel(tw[3][:, 0], k7[3][:, 0])
+    abs_err = max(float((w.double() - g.double()).abs().max())
+                  for w, g in zip(tw[:3], k7[:3]))
+    for k, v in twin_errs.items():
+        check(v < RESIDENT_BAR, f"K7 vs twin {k}")
+    work = [x.clone() for x in (*base, uv)]
+    work_act = act.clone()
+    ms = cuda_ms(lambda: step_cuda_stream.launch(ops, *work, work_act, 1,
+                                                 n_members=N_MEMBERS))
+    plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
+        ops, *base, uv, act, 1, n_members=N_MEMBERS), iters=2, warmup=1)
+    log(f"[12]   3 steps, K7 vs twin: {fmt(twin_errs)}; one launch of one step:"
+        f" K7 {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    return {"launches": counts["K7"], "sim_day_wall_s": wall,
+            "ray_steps_per_s": rate, "sequential_k6_s": walls_seq,
+            "profile": prof, "member_errs": member_errs, "twin_errs": twin_errs,
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -684,6 +1022,9 @@ def main() -> int:
     path_a = phase_path_a(device, smi)
     path_b = phase_path_b(device, smi)
     route = phase_k1_route(device)
+    path_d = phase_path_d(device, smi)
+    sort = phase_launch_sort(device, smi)
+    path_e = phase_path_e(device, smi)
 
     kernels = [
         {"name": "K1 flux deposit (project_pallas)", "route": "cuda",
@@ -714,13 +1055,24 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
          "launches": path_b["launches"], "max_abs_err": path_b["max_abs_err"],
          "ms": path_b["ms"], "plain_ms": path_b["plain_ms"]},
+        {"name": "K6 whole-run kernel with the lifecycle (simulate_streaming)",
+         "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
+         "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
+         "launches": path_d["launches"], "max_abs_err": path_d["max_abs_err"],
+         "ms": path_d["ms"], "plain_ms": path_d["plain_ms"]},
+        {"name": "K7 ensemble whole-run kernel (simulate_streaming_ensemble)",
+         "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
+         "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
+         "launches": path_e["launches"], "max_abs_err": path_e["max_abs_err"],
+         "ms": path_e["ms"], "plain_ms": path_e["plain_ms"]},
     ]
     summary = {
         "k1": {str(n): v for n, v in k1.items()},
         "k2": {**{str(n): v for n, v in k2.items()}, "spread": k2_spread},
         "k3": {str(n): v for n, v in k3.items()},
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
-        "k1_route": route, "build_s": build_s,
+        "k1_route": route, "path_d": path_d, "launch_sort": sort,
+        "path_e": path_e, "build_s": build_s,
     }
     log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels

@@ -7,13 +7,18 @@ Python; the kernels that were Pallas on the TPU are hand-written CUDA for
 Hopper (``csrc/``), built at first use.  This package imports ``torch``
 and never ``jax``.
 
-This slice covers the coupled vertical-propagation step (``hprop=False``
-is the fast path; ``hprop=True`` runs on the composable path) through
-:func:`simulate`, with the fused RHS kernels K2 (``rhs_backend="pallas",
-window_cells=0``), K3 and the stage-fused K4 (``rhs_backend="pallas"``
-with the default ``window_cells=-1`` or any other nonzero width), the
-deposit kernel K1 (``projection_backend="pallas"``), and whole runs of
-the persistent kernel K5 through :func:`simulate_resident`.
+It covers the coupled vertical-propagation step (``hprop=False`` is the
+fast path; ``hprop=True`` runs on the composable path) through
+:func:`simulate`, with the lifecycle (cull, relaunch, keyed sources drawn
+from a ``torch.Generator``), prescribed winds and the height sort; the
+fused RHS kernels K2 (``rhs_backend="pallas", window_cells=0``), K3 and
+the stage-fused K4 (``rhs_backend="pallas"`` with the default
+``window_cells=-1`` or any other nonzero width), the deposit kernel K1
+(``projection_backend="pallas"``); whole runs of the persistent kernel K5
+through :func:`simulate_resident`, which routes the lifecycle, a
+``wind_fn`` and the launch sort to K6 (``ops/step_cuda_stream.py``); and
+ensembles in one launch of K7 (:func:`simulate_streaming_ensemble`,
+``parallel.ensemble_simulate(backend="mega")``).
 """
 
 from .config import GridConfig, ModelConfig, RunConfig, REFERENCE_RUN_CONFIG  # noqa: F401
@@ -32,7 +37,9 @@ from .state import (  # noqa: F401
     tree_axpy,
 )
 from .models import (  # noqa: F401
+    cull,
     gaussian_spectrum_source,
+    relaunch,
     rhs,
     rk3_step,
     simulate,
@@ -56,5 +63,6 @@ from .ops import (  # noqa: F401
     wavenumber_tendencies,
 )
 from .ops.step_cuda import simulate_resident  # noqa: F401
+from .ops.step_cuda_stream import simulate_streaming_ensemble  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,14 +1,14 @@
 """Diagnostics of the port: the counterpart of :mod:`msgwam_tpu.diagnostics`.
 
-This slice ports only the window mirror of the windowed kernels K3-K5
+Ported: the window mirror of the windowed kernels K3-K6
 (``msgwam_tpu/diagnostics.py:206-338``): which tiles of the current ray
 layout a kernel would run in its first window, its second tier or at full
 width.  It mirrors **the port's** kernels, whose tile is 256 rays (the
 TPU's was 8192) and whose rule is :mod:`.ops.ray_physics`' own, so the
 mirror and the kernels' twins share one implementation.  A tile of no
-active ray never falls back.  The rest of the JAX module (wave-action
-histories, the reference window diagnostics, ``internal_ray_layout``)
-is ROADMAP queue 1, item 7.
+active ray never falls back.  And :func:`internal_ray_layout`, the layout
+the launch-sorted K6 saw.  The rest of the JAX module (wave-action
+histories, the reference window diagnostics) is ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -18,6 +18,32 @@ from typing import NamedTuple
 import torch
 
 from .ops import ray_physics, rhs_cuda
+from .state import State, tree_map
+
+
+def internal_ray_layout(state, statics, perm):
+    """Per-ray state and statics in the launch-sorted layout that K6's
+    last launch ran over.
+
+    ``perm`` is the final slot permutation of
+    ``simulate_streaming(..., return_final_perm=True)``: ``perm[i]`` is the
+    caller's slot at internal position ``i``.  The port pads to no tile
+    multiple, so ``perm`` has one entry per ray; ids past the ray count
+    (a longer ``perm``) take the last slot's fields and an inactive mask,
+    as the JAX package pads.  Applied to the returned slot-ordered state it
+    rebuilds what the kernel saw, so :func:`window_fallback_stats` measures
+    that layout.  Returns ``(state, statics)`` of ``perm``'s length."""
+    n = state.rays.r.shape[0]
+    idx = torch.clamp(perm.long(), max=n - 1)
+    pad = perm >= n
+
+    def gather(x):
+        return x[idx]
+
+    rays = tree_map(gather, state.rays)
+    statics_i = tree_map(gather, statics)
+    active = statics_i.active & ~pad
+    return State(rays, state.mean), statics_i._replace(active=active)
 
 
 class WindowFallbackStats(NamedTuple):

@@ -10,4 +10,4 @@ from .backgrounds import (  # noqa: F401
 )
 from .rhs import rhs  # noqa: F401
 from .integrate import rk3_step, step, simulate, williamson_rk3  # noqa: F401
-from .sources import wave_packet_ic, gaussian_spectrum_source  # noqa: F401
+from .sources import cull, gaussian_spectrum_source, relaunch, wave_packet_ic  # noqa: F401

@@ -1,14 +1,16 @@
 """Time integration: the counterpart of :mod:`msgwam_tpu.models.integrate`.
 
 Williamson low-storage RK3 with the reference's stage arithmetic
-(including the full ``dt`` passed to every stage's RHS), the per-step
-driver with *offline* saturation, and :func:`simulate`, a Python loop over
-steps with history decimation.  PyTorch runs eagerly, so the loop is the
-JAX package's ``lax.scan`` written out.
+(including the full ``dt`` passed to every stage's RHS), the step
+function with *offline* saturation and culling, and :func:`simulate`, a
+Python loop over steps with history decimation, relaunch, transient winds
+and the height sort.  PyTorch runs eagerly, so the loop is the JAX
+package's ``lax.scan`` written out.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Callable, NamedTuple, Optional
 
@@ -18,6 +20,7 @@ from ..config import ModelConfig, RunConfig
 from ..ops.projection import required_span
 from ..ops.saturation import saturate_direct
 from ..state import Background, RayStatics, State, torch_dtype, tree_axpy, tree_map
+from . import sources as _sources
 from .rhs import rhs as rhs_default
 
 
@@ -154,11 +157,14 @@ def step(
     rhs: Callable = rhs_default,
 ):
     """One model step: RK3, then (with ``saturate_online`` off) the
-    driver-side offline direct saturation with finite-difference rates.
-    Returns ``(new_state, new_statics, aux)``."""
-    if cfg.cull or cfg.relaunch:
-        raise NotImplementedError(
-            "cull/relaunch are not ported yet (ROADMAP queue 1, item 3)")
+    host-side offline direct saturation with finite-difference rates,
+    then (with ``cfg.cull``) the cull.  Returns ``(new_state, new_statics,
+    aux)``.
+
+    This path culls only when ``cfg.cull`` is set, as the JAX package's
+    scan path does; the whole-run kernels K6/K7 cull when ``cfg.cull`` or
+    ``cfg.relaunch`` is set (``ops/step_cuda_stream.py``), as its
+    streaming kernel does."""
     prev = state
     state = rk3_step(dt, state, statics, bg, cfg, axis_name, rhs)
     aux = StepAux(dens_prop=state.rays.dens)
@@ -191,12 +197,19 @@ def step(
             interp_backend=cfg.interp_backend,
         )
         state = state._replace(rays=rays._replace(dens=dens))
+
+    if cfg.cull:
+        state, statics = _sources.cull(state, statics, bg, cfg)
     return state, statics, aux
 
 
 def _not_ported(name: str, item: str):
     raise NotImplementedError(f"simulate({name}=...) is not ported yet "
                               f"(ROADMAP {item})")
+
+
+def _gather(tree, idx):
+    return tree_map(lambda x: x[idx], tree)
 
 
 def simulate(
@@ -228,21 +241,32 @@ def simulate(
     history leaf has leading axis ``n_steps // save_every`` (+1 with
     ``include_t0``).
 
-    Not in this slice, and raising ``NotImplementedError``: ``source`` and
-    ``source_key`` (relaunch, keyed sources), ``wind_fn``, ``sort_every``,
-    ``remat`` and ``axis_name``.
+    With ``cfg.relaunch``, ``source`` refills the inactive slots after each
+    step whose index is a multiple of ``relaunch_every``.  It is a fixed
+    ``(RayState, RayStatics)`` template, or a callable ``source(key)`` that
+    draws a fresh template; ``source_key`` (a ``torch.Generator``) is then
+    required and passed to it at every step, even when ``relaunch_every >
+    1``, as the JAX package splits its key every step.
+
+    ``wind_fn(t) -> (u, v)`` overwrites the mean wind at the start of step
+    ``i``, ``t = t0 + i * dt`` in the background's dtype; a scalar return
+    is broadcast to the whole column.
+
+    ``sort_every=N`` sorts the rays by height (inactive slots last) every
+    N steps with a stable sort.  A slot permutation is carried, so history
+    frames, relaunch templates and the final state all stay in the
+    caller's slot order; only the order of floating-point sums changes.
+
+    ``remat`` (ROADMAP queue 1, item 5) and ``axis_name`` (queue 1,
+    item 9) raise ``NotImplementedError``.
     """
-    if source is not None or source_key is not None:
-        _not_ported("source", "queue 1, item 3: relaunch and keyed sources")
-    if wind_fn is not None:
-        _not_ported("wind_fn", "queue 1, item 5: transient winds")
-    if sort_every:
-        _not_ported("sort_every", "queue 1, item 5: height sort with slot identity")
     if remat:
         _not_ported("remat", "queue 1, item 5: torch.utils.checkpoint")
     if axis_name is not None:
         _not_ported("axis_name", "queue 1, item 9: ray sharding")
-    del relaunch_every, t0  # only meaningful with source / wind_fn
+    keyed_source = callable(source)
+    if keyed_source and source_key is None:
+        raise ValueError("a callable source requires source_key")
 
     if observe is None:
         observe = lambda s, st, aux: (s, st.active, aux.dens_prop)
@@ -251,16 +275,55 @@ def simulate(
     if validate:
         validate_inputs(state, statics, bg, cfg)
 
+    use_sort = sort_every > 0
+    slot = (torch.arange(state.rays.r.shape[0], device=state.rays.r.device)
+            if use_sort else None)
+
+    def unsorted(st, stat, aux):
+        if not use_sort:
+            return st, stat, aux
+        inv = torch.argsort(slot)
+        return (st._replace(rays=_gather(st.rays, inv)), _gather(stat, inv),
+                _gather(aux, inv))
+
+    t_dtype = bg.centers.dtype
     frames = []
     if include_t0:
         frames.append(observe(state, statics, StepAux(dens_prop=state.rays.dens)))
     with torch.no_grad():
         for i in range(run.n_steps):
+            if use_sort and i % sort_every == 0:
+                key = torch.where(statics.active, state.rays.r,
+                                  torch.full_like(state.rays.r, math.inf))
+                order = torch.argsort(key, stable=True)
+                state = state._replace(rays=_gather(state.rays, order))
+                statics = _gather(statics, order)
+                slot = slot[order]
+            if wind_fn is not None:
+                t = t0 + torch.tensor(float(i), dtype=t_dtype) * run.dt
+                u, v = wind_fn(t)
+                mean = state.mean
+                state = state._replace(mean=mean._replace(
+                    u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
             state, statics, aux = step(run.dt, state, statics, bg, cfg, None, rhs)
+            if cfg.relaunch and source is not None:
+                template = source(source_key) if keyed_source else source
+                if use_sort:
+                    template = _gather(template, slot)
+                if relaunch_every <= 1 or i % relaunch_every == 0:
+                    state, statics = _sources.relaunch(state, statics, template)
             if (i + 1) % run.save_every == 0:
-                frames.append(observe(state, statics, aux))
+                frames.append(observe(*unsorted(state, statics, aux)))
+    if use_sort:
+        state, statics, _ = unsorted(state, statics, ())
     if include_t0 and len(frames) > 1:
         # frame 0 takes the history's dtypes, as in the JAX package
         frames[0] = tree_map(lambda h0, h: h0.to(h.dtype), frames[0], frames[1])
     history = tree_map(lambda *xs: torch.stack(xs), *frames)
     return state, statics, history
+
+
+def _broadcast(w, like):
+    """A ``wind_fn`` return as a column like ``like``: scalars broadcast."""
+    w = torch.as_tensor(w, device=like.device)
+    return torch.broadcast_to(w, like.shape).to(like.dtype)

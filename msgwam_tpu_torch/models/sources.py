@@ -1,15 +1,15 @@
 """Ray sources: the counterpart of :mod:`msgwam_tpu.models.sources`.
 
-This slice has the reference initial condition (:func:`wave_packet_ic`)
-and the deterministic launch spectrum (:func:`gaussian_spectrum_source`).
-The keyed (random) spectrum, ``cull`` and ``relaunch`` are later work
-(ROADMAP queue 1, item 3).
+The reference initial condition (:func:`wave_packet_ic`), the launch
+spectrum (:func:`gaussian_spectrum_source`, deterministic or drawn from a
+``torch.Generator``) and the lifecycle: :func:`cull` flips the mask of
+dead rays and :func:`relaunch` refills inactive slots from a template.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +18,7 @@ from ..config import GridConfig, ModelConfig
 from ..constants import ROT_EARTH
 from ..ops.dispersion import omega
 from ..ops.interp import grid_interp
-from ..state import Background, RayState, RayStatics, coriolis, torch_dtype
+from ..state import Background, RayState, RayStatics, State, coriolis, torch_dtype
 
 
 def wave_packet_ic(
@@ -85,6 +85,18 @@ def wave_packet_ic(
     return rays, statics
 
 
+def _truncated_normal(gen: torch.Generator, lo: float, hi: float, n: int,
+                      dtype) -> torch.Tensor:
+    """Standard normal draws cut at ``[lo, hi]`` by inverting the CDF of a
+    uniform draw between ``Phi(lo)`` and ``Phi(hi)``; the result is clamped
+    to the bounds, so they hold exactly in ``dtype``."""
+    erf = lambda x: math.erf(x / math.sqrt(2.0))
+    u = torch.rand((n,), generator=gen, dtype=torch.float64, device=gen.device)
+    u = erf(lo) + (erf(hi) - erf(lo)) * u
+    x = math.sqrt(2.0) * torch.special.erfinv(u)
+    return torch.clamp(x.to(dtype), lo, hi)
+
+
 def gaussian_spectrum_source(
     cfg: ModelConfig,
     bg: Background,
@@ -96,35 +108,50 @@ def gaussian_spectrum_source(
     m_halfwidth: float = 3.0,
     wavelength_h: float = 50e3,
     amplitude_alpha: float = 0.01,
-    key=None,
+    key: Optional[torch.Generator] = None,
     dtype=torch.float64,
     device=None,
 ) -> Tuple[RayState, RayStatics]:
     """Gaussian source spectrum: ``n_ray`` ray volumes launched at
-    ``z_launch`` with vertical wavenumbers linspaced over a Gaussian
-    spectrum around ``m_center``, wave-action density at a fraction
-    ``amplitude_alpha²`` of saturation.  Computed on ``device``, like the
-    JAX package computes it with jnp.
+    ``z_launch`` with vertical wavenumbers over a Gaussian spectrum around
+    ``m_center``, wave-action density at a fraction ``amplitude_alpha²`` of
+    saturation.  Computed on ``device``, like the JAX package computes it
+    with jnp.
 
-    Only the deterministic spectrum is in this slice: a ``key`` raises.
+    Without ``key`` the wavenumbers are linspaced over ``±m_halfwidth``
+    standard deviations.  With a ``torch.Generator`` as ``key`` the draw is
+    stochastic, as the JAX package's keyed draw: ``m`` from a normal cut
+    exactly at ``±m_halfwidth`` standard deviations, an amplitude jitter
+    ``exp(0.3 N)`` and launch heights offset uniformly within
+    ``±dz_launch / 2``, drawn in that order from the generator (on its own
+    device, then moved to ``device``).  The generator advances with every
+    draw.  Its numbers are not JAX's: the same seed gives the same draw
+    here and another one there, so the two packages agree in distribution
+    only.
     """
-    if key is not None:
-        raise NotImplementedError(
-            "keyed (stochastic) sources are not ported yet (ROADMAP queue 1, "
-            "item 3); the port will take a torch.Generator")
     dtype = torch_dtype(dtype)
     device = bg.centers.device if device is None else device
     ones = torch.ones((n_ray,), dtype=dtype, device=device)
     k_abs = 2.0 * math.pi / wavelength_h
-    mm = torch.linspace(
-        m_center - m_halfwidth * m_sigma,
-        m_center + m_halfwidth * m_sigma,
-        n_ray, dtype=dtype, device=device,
-    )
+    if key is None:
+        mm = torch.linspace(
+            m_center - m_halfwidth * m_sigma,
+            m_center + m_halfwidth * m_sigma,
+            n_ray, dtype=dtype, device=device,
+        )
+        amp_jitter = 1.0
+        z_off = 0.0
+    else:
+        draw = _truncated_normal(key, -m_halfwidth, m_halfwidth, n_ray, dtype)
+        mm = m_center + m_sigma * draw.to(device)
+        amp_jitter = torch.exp(0.3 * torch.randn(
+            (n_ray,), generator=key, dtype=dtype, device=key.device)).to(device)
+        z_off = dz_launch * (torch.rand((n_ray,), generator=key, dtype=dtype,
+                                        device=key.device).to(device) - 0.5)
     # keep m strictly negative (upward group propagation)
     mm = torch.clamp(mm, max=-k_abs)
 
-    r = ones * z_launch
+    r = ones * z_launch + z_off
     dr = ones * dz_launch
     rr_mm_area = 5e-5 * dr
     dm = rr_mm_area / dr
@@ -141,7 +168,7 @@ def gaussian_spectrum_source(
         amplitude_alpha**2 * rhobar_ray / 2.0 * omh / mm**2
         / (omh**2 - f0**2) * cfg.bvf**2
     )
-    dens = amplitude * spectrum / dkk / dll / dm
+    dens = amplitude * spectrum * amp_jitter / dkk / dll / dm
 
     rays = RayState(dens=dens, lam=torch.zeros_like(r), phi=ones * cfg.phi0,
                     r=r, dr=dr, k=k, l=l, m=mm, dm=dm)
@@ -150,3 +177,39 @@ def gaussian_spectrum_source(
         active=torch.ones((n_ray,), dtype=torch.bool, device=device),
     )
     return rays, statics
+
+
+def cull(state: State, statics: RayStatics, bg: Background, cfg: ModelConfig):
+    """Deactivate dead rays (a mask flip; the state is untouched and the
+    RHS masks their tendencies to zero): rays wholly out of the vertical
+    domain, at a critical level (``|m| > cfg.m_max``), or with a
+    non-finite density, height or wavenumber."""
+    rays = state.rays
+    r_low = rays.r - 0.5 * rays.dr
+    r_up = rays.r + 0.5 * rays.dr
+    out = (r_low >= bg.faces[-1]) | (r_up <= bg.faces[0])
+    critical = torch.abs(rays.m) > cfg.m_max
+    finite = (torch.isfinite(rays.dens) & torch.isfinite(rays.r)
+              & torch.isfinite(rays.m))
+    active = statics.active & ~out & ~critical & finite
+    return state, statics._replace(active=active)
+
+
+def relaunch(state: State, statics: RayStatics,
+             source: Tuple[RayState, RayStatics]):
+    """Refill inactive slots from a source template (slot reuse); active
+    rays are untouched."""
+    src_rays, src_statics = source
+    act = statics.active
+
+    def pick(live, fresh):
+        return torch.where(act, live, fresh)
+
+    rays = RayState(*(pick(a, b) for a, b in zip(state.rays, src_rays)))
+    statics = RayStatics(
+        dkk=pick(statics.dkk, src_statics.dkk),
+        dll=pick(statics.dll, src_statics.dll),
+        rr_mm_area=pick(statics.rr_mm_area, src_statics.rr_mm_area),
+        active=act | src_statics.active,
+    )
+    return State(rays, state.mean), statics

@@ -1,8 +1,8 @@
 """Compute kernels of the port: dispersion, interpolation, the ray→grid
 projection and saturation in plain torch, plus the hand-written CUDA
 kernels K1 (``projection_cuda``), K2 (``rhs_cuda``), K3/K4
-(``rhs_cuda_windowed``) and K5 (``step_cuda``), whose twins share
-``ray_physics``."""
+(``rhs_cuda_windowed``), K5 (``step_cuda``) and K6/K7
+(``step_cuda_stream``), whose twins share ``ray_physics``."""
 
 from .interp import basis_interp, basis_matrix, grid_interp  # noqa: F401
 from .dispersion import (  # noqa: F401

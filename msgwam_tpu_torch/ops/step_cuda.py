@@ -125,18 +125,39 @@ def launch(ops: Operands, dens, r, m, uv, n_steps: int):
     return dens, r, m, uv, dens.clone() if ops.online else dens_prop
 
 
-def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int):
+class Lifecycle(NamedTuple):
+    """The cull and relaunch of K6/K7 after the third stage: the float32
+    bounds, and the relaunch template ``(dens, r, m, active)`` or
+    ``None``."""
+
+    m_max: float
+    face_lo: float
+    face_hi: float
+    src: tuple = None
+
+
+def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int,
+                            act=None, life: Lifecycle = None, wind=None):
     """Plain PyTorch twin of one launch (any device, the inputs' dtype):
-    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing."""
+    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing.
+
+    The K6 twin (:func:`msgwam_tpu_torch.ops.step_cuda_stream.
+    step_stream_reference`) passes the mask ``act`` (default
+    ``ops.active``), the lifecycle ``life`` and a ``(n_steps, 2, n_tab)``
+    ``wind`` table; it reads the mask after the run from the sixth entry
+    this then returns."""
     g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv = ops.scalars
     params = torch.tensor([g0c, dz, g0f], dtype=dens.dtype, device=dens.device)
     g = ray_physics.geometry(params, ops.n_tab)
     window = (ops.c_pad, ops.w1, ops.w2)
     dr, k, l, dm, phi, dkk, dll, area = ops.frozen
-    act = ops.active
+    stream = act is not None or life is not None or wind is not None
+    act = ops.active if act is None else act
     u, v = uv[0], uv[1]
     dens_prop = dens
-    for _ in range(n_steps):
+    for step in range(n_steps):
+        if wind is not None:
+            u, v = wind[step, 0], wind[step, 1]
         r_prev, m_prev = r, m
         qd = qr = qm = qu = qv = None
         for cc, bc, first in ray_physics.RK3_STAGES:
@@ -157,17 +178,33 @@ def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int):
                 v, qv = ray_physics.rk3_stage(dv, v, qv, dt, cc, bc, first)
         dens_prop = dens
         if not ops.online:
-            dens = _offline_saturation(ops, g, dens, r, m, r_prev, m_prev)
-    return dens, r, m, torch.stack([u, v]), dens_prop
+            dens = _offline_saturation(ops, g, act, dens, r, m, r_prev, m_prev)
+        if life is not None:
+            dens, r, m, act = _lifecycle(life, dr, act, dens, r, m)
+    out = (dens, r, m, torch.stack([u, v]), dens_prop)
+    return out + (act,) if stream else out
 
 
-def _offline_saturation(ops: Operands, g, dens, r, m, r_prev, m_prev):
+def _lifecycle(life: Lifecycle, dr, act, dens, r, m):
+    """The cull after a step and, with a template, the relaunch of every
+    inactive slot (``step_pallas_stream.py:431-465``)."""
+    out = ((r - 0.5 * dr) >= life.face_hi) | ((r + 0.5 * dr) <= life.face_lo)
+    crit = torch.abs(m) > life.m_max
+    finite = torch.isfinite(dens) & torch.isfinite(r) & torch.isfinite(m)
+    new_act = act & ~out & ~crit & finite
+    if life.src is None:
+        return dens, r, m, new_act
+    src_dens, src_r, src_m, src_act = life.src
+    return (torch.where(new_act, dens, src_dens), torch.where(new_act, r, src_r),
+            torch.where(new_act, m, src_m), new_act | src_act)
+
+
+def _offline_saturation(ops: Operands, g, act, dens, r, m, r_prev, m_prev):
     """The direct saturation after a step, with finite-difference rates
     (quirk 2: the height rate divided by ``rdiv``), rho read at
     ``r_prev + rate·dt`` through a W-wide window (``step_pallas.py:404-483``)."""
     _, _, _, _, dt, bvf, kappa, f0, rdiv = ops.scalars
     dr, k, l, dm, phi, dkk, dll, area = ops.frozen
-    act = ops.active
     r_fin = r_prev + (r - r_prev) / rdiv * dt
     m_fin = m_prev + (m - m_prev) / dt * dt
     qr = (torch.clamp(r_fin, g.g0c, g.hi_c) - g.g0c) / g.dz
@@ -194,20 +231,39 @@ def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
     ``observe(state, statics, aux)`` reduces each history frame as in
     ``simulate``; without it the history is the default ``(State, active,
     dens_prop)`` stacked per save point.  ``include_t0`` prepends the
-    initial state.  The lifecycle (``cfg.cull``/``cfg.relaunch``) and
-    ``wind_fn`` raise ``NotImplementedError`` (the JAX package routes them
-    to the streaming kernel K6).  ``source``, ``source_key``, ``t0`` and
-    ``launch_sort`` are read only on that route and are ignored here.
-    Forward only."""
-    if cfg.cull or cfg.relaunch or wind_fn is not None:
-        raise NotImplementedError(
-            "simulate_resident with cull, relaunch or wind_fn needs the "
-            "streaming whole-run kernel K6 (ROADMAP queue 2), which is not "
-            "ported yet")
-    del source, source_key, t0, launch_sort
+    initial state.  The lifecycle (``cfg.cull``/``cfg.relaunch``), a
+    ``wind_fn`` or ``launch_sort=True`` (``None`` is off, as the sort does
+    not pay on the H100) route the call, with ``source``,
+    ``source_key``, ``t0``, ``launch_sort`` and ``observe``, to
+    :func:`msgwam_tpu_torch.ops.step_cuda_stream.simulate_streaming` (K6);
+    K5 runs the rest.  Forward only."""
+    from . import step_cuda_stream
+
+    if cfg.cull or cfg.relaunch or wind_fn is not None or launch_sort:
+        return step_cuda_stream.simulate_streaming(
+            state, statics, bg, cfg, run, include_t0=include_t0,
+            source=source, wind_fn=wind_fn, t0=t0, launch_sort=launch_sort,
+            observe=observe, source_key=source_key)
+    del source, source_key, t0
     _build.forward_only("simulate_resident", state, statics, bg)
     return _simulate_resident_impl(state, statics, bg, cfg, run,
                                    include_t0=include_t0, observe=observe)
+
+
+def check_run(state, cfg, run, name: str) -> None:
+    """The checks of every whole-run entry point (K5-K7): ``hprop=False``,
+    a float32 state (a leading member axis is fine) and whole launches."""
+    if cfg.hprop:
+        raise ValueError(f"{name} requires hprop=False")
+    for what, arr in (("state.rays.dens", state.rays.dens),
+                      ("state.mean.u", state.mean.u)):
+        if arr.dtype != torch.float32:
+            raise TypeError(
+                f"{name} computes in float32 but {what} has dtype "
+                f"{arr.dtype}; build the state with dtype=float32 (or use "
+                f"simulate() for the float64 parity path)")
+    if run.n_steps % run.save_every:
+        raise ValueError("n_steps must be divisible by save_every")
 
 
 def _simulate_resident_impl(state, statics, bg, cfg, run,
@@ -217,18 +273,8 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
     fields (lam, phi, dr, k, l, dm) come from the initial state."""
     from ..models.integrate import StepAux
 
-    if cfg.hprop:
-        raise ValueError("simulate_resident requires hprop=False")
-    for name, arr in (("state.rays.dens", state.rays.dens),
-                      ("state.mean.u", state.mean.u)):
-        if arr.dtype != torch.float32:
-            raise TypeError(
-                f"simulate_resident computes in float32 but {name} has dtype "
-                f"{arr.dtype}; build the state with dtype=float32 (or use "
-                f"simulate() for the float64 parity path)")
+    check_run(state, cfg, run, "simulate_resident")
     rhs_cuda.check_inputs(state, statics, bg, "simulate_resident", MAX_PAD)
-    if run.n_steps % run.save_every:
-        raise ValueError("n_steps must be divisible by save_every")
     rays, mean = state.rays, state.mean
     cfg = rhs_cuda.apply_champion(cfg, rays.r.shape[0])
     ops = operands(state, statics, bg, cfg, run.dt)

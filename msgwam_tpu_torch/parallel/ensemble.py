@@ -1,0 +1,140 @@
+"""Ensemble fan-out: many independent simulations (stochastic-source
+members, parameter sweeps) with a leading ``ensemble`` axis on every leaf.
+
+The counterpart of :mod:`msgwam_tpu.parallel.ensemble`.  ``backend="mega"``
+runs the whole ensemble in one launch of the kernel K7 per ``save_every``
+window (:func:`msgwam_tpu_torch.ops.step_cuda_stream.
+simulate_streaming_ensemble`); ``backend="scan"`` runs the members one
+after another through :func:`msgwam_tpu_torch.simulate`.  The JAX package
+vmaps its scan over the members or maps it (``sequential``); torch has no
+vmap of this Python loop, so the port always runs the members in turn and
+``sequential`` changes nothing.  A ``mesh`` (the JAX package's
+``shard_map`` over devices) raises: one H100 has no second device, and
+sharding is ROADMAP queue 1, item 9.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..config import ModelConfig, RunConfig
+from ..models.integrate import simulate
+from ..state import Background, RayStatics, State, tree_map
+
+ENSEMBLE_AXIS = "ensemble"
+
+
+def stack_ensemble(members):
+    """Stack a list of ``(state, statics)`` members into trees with a
+    leading ensemble axis."""
+    states = [m[0] for m in members]
+    statics = [m[1] for m in members]
+    stack = lambda *xs: torch.stack(xs)
+    return tree_map(stack, *states), tree_map(stack, *statics)
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "ensemble sharding over a device mesh is not ported (ROADMAP "
+            "queue 1, item 9); one H100 runs every member")
+
+
+def ensemble_simulate(
+    states: State,
+    statics: RayStatics,
+    bg: Background,
+    cfg: ModelConfig,
+    run: RunConfig,
+    mesh=None,
+    observe: Optional[Callable] = None,
+    axis: str = ENSEMBLE_AXIS,
+    sequential: bool = False,
+    backend: str = "scan",
+    sources=None,
+    wind_fn=None,
+    t0: float = 0.0,
+):
+    """Run a batch of simulations (leading ensemble axis on every leaf of
+    ``states``/``statics``).
+
+    ``backend="mega"`` routes the batch through
+    :func:`msgwam_tpu_torch.ops.step_cuda_stream.simulate_streaming_ensemble`
+    (K7): online saturation, float32, the lifecycle per member with stacked
+    ``sources`` templates, a shared or per-member ``wind_fn``.  It rejects
+    ``observe`` and ``sequential`` and returns ``(final, statics,
+    mean_history)`` with ``mean_history`` member-leading, ``(E, n_chunks,
+    n_cell)``, as the scan backend's default observation.
+
+    ``backend="scan"`` runs each member through ``simulate`` with
+    ``observe`` (default: the mean wind) and stacks the results; members
+    run one after another whatever ``sequential`` says.  ``mesh`` raises
+    ``NotImplementedError``.
+    """
+    del axis
+    _no_mesh(mesh)
+    if backend == "mega":
+        from ..ops.step_cuda_stream import simulate_streaming_ensemble
+
+        if observe is not None:
+            raise ValueError(
+                "backend='mega' returns the per-member mean history "
+                "directly and does not support an observe callback; "
+                "post-process its mean_history or use backend='scan'")
+        if sequential:
+            raise ValueError(
+                "backend='mega' batches all local members into one kernel "
+                "launch; sequential=True is a scan-backend option")
+        fin, st, mh = simulate_streaming_ensemble(
+            states, statics, bg, cfg, run, sources=sources, wind_fn=wind_fn,
+            t0=t0)
+        return fin, st, tree_map(lambda x: x.transpose(0, 1), mh)
+    if backend != "scan":
+        raise ValueError(f"unknown ensemble backend {backend!r}")
+    fn = build_ensemble_fn(cfg, run, observe=observe, sequential=sequential,
+                           with_source=sources is not None, wind_fn=wind_fn,
+                           t0=t0)
+    if sources is None:
+        return fn(states, statics, bg)
+    return fn(states, statics, sources, bg)
+
+
+def _default_observe(s, st, aux):
+    return s.mean
+
+
+def build_ensemble_fn(
+    cfg: ModelConfig,
+    run: RunConfig,
+    mesh=None,
+    observe: Optional[Callable] = None,
+    axis: str = ENSEMBLE_AXIS,
+    sequential: bool = False,
+    with_source: bool = False,
+    wind_fn: Optional[Callable] = None,
+    t0: float = 0.0,
+) -> Callable:
+    """The ensemble runner ``f(states, statics[, sources], bg) -> (final,
+    statics, history)``: each member through ``simulate`` in turn, the
+    results stacked member-leading.  ``with_source=True`` adds a stacked
+    per-member relaunch template argument.  Nothing is compiled, so nothing
+    is cached; ``sequential`` changes nothing and ``mesh`` raises
+    ``NotImplementedError``."""
+    del axis, sequential
+    _no_mesh(mesh)
+    obs = observe or _default_observe
+    pick = lambda tree, e: tree_map(lambda x: x[e], tree)
+
+    def run_members(states, statics, *rest):
+        *src, bg = rest
+        outs = []
+        for e in range(states.rays.r.shape[0]):
+            source = pick(src[0], e) if with_source else None
+            outs.append(simulate(pick(states, e), pick(statics, e), bg, cfg,
+                                 run, observe=obs, source=source,
+                                 wind_fn=wind_fn, t0=t0))
+        return tree_map(lambda *xs: torch.stack(xs), *outs)
+
+    return run_members

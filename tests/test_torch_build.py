@@ -13,11 +13,14 @@ import torch
 
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch import _build
-from msgwam_tpu_torch.ops import projection_cuda, rhs_cuda, rhs_cuda_windowed
+from msgwam_tpu_torch.ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed,
+                                  step_cuda_stream)
+from msgwam_tpu_torch.parallel import stack_ensemble
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
 KERNEL_ENTRIES = {"msgwam_project", "msgwam_rhs_fused", "msgwam_rhs_windowed",
-                  "msgwam_step_resident_blocks", "msgwam_step_resident"}
+                  "msgwam_step_resident_blocks", "msgwam_step_resident",
+                  "msgwam_step_stream_blocks", "msgwam_step_stream"}
 
 
 def _declarations():
@@ -79,13 +82,20 @@ ENTRY_POINTS = {
         rhs_cuda_windowed.rk3_step_fused_windowed(120.0, s, st, bg, cfg),
     "simulate_resident": lambda cfg, bg, s, st: mtt.simulate_resident(
         s, st, bg, cfg, mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)),
+    "simulate_streaming": lambda cfg, bg, s, st: step_cuda_stream.simulate_streaming(
+        s, st, bg, cfg.replace(cull=True, relaunch=True),
+        mtt.RunConfig(dt=120.0, n_steps=1, save_every=1), source=(s.rays, st)),
+    "simulate_streaming_ensemble": lambda cfg, bg, s, st:
+        mtt.simulate_streaming_ensemble(
+            *stack_ensemble([(s, st)] * 2), bg, cfg,
+            mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_kernel_entry_points_refuse_gradients(entry):
     """With grad mode on and an input that needs a gradient, each entry
-    point of K1-K5 raises and names the ROADMAP item of the adjoint, on
+    point of K1-K7 raises and names the ROADMAP item of the adjoint, on
     the CPU as on the card; under ``torch.no_grad()`` it runs."""
     cfg, bg, state, statics = _bench_inputs()
     call = ENTRY_POINTS[entry]

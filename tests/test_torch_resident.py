@@ -133,10 +133,14 @@ def test_k5_guard_rails():
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=4, save_every=2)
     with pytest.raises(ValueError, match="hprop"):
         mtt.simulate_resident(s, st, b, tcfg.replace(hprop=True), run)
-    for kw, over in ((dict(cull=True), {}), (dict(relaunch=True), {}),
-                     ({}, dict(wind_fn=lambda t: (0.0, 0.0)))):
-        with pytest.raises(NotImplementedError, match="K6"):
-            mtt.simulate_resident(s, st, b, tcfg.replace(**kw), run, **over)
+    # the lifecycle and wind_fn take K6's route, with its own guards
+    with pytest.raises(ValueError, match="source template"):
+        mtt.simulate_resident(s, st, b, tcfg.replace(relaunch=True), run)
+    for kw, over in ((dict(cull=True), {}), ({}, dict(wind_fn=lambda t: (0.0, 0.0)))):
+        step_cuda.LAUNCHES = 0
+        _, got_st, hist = mtt.simulate_resident(s, st, b, tcfg.replace(**kw), run,
+                                                **over)
+        assert step_cuda.LAUNCHES == 0 and hist[1].shape == (2, 512)
     s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
     with pytest.raises(TypeError, match="float32"):
         mtt.simulate_resident(s64, st64, b64, tcfg.replace(dtype="float64"), run)

@@ -152,12 +152,12 @@ def test_unported_options_raise_and_inputs_are_validated():
     cfg, bg, state, statics = _reference_setup()
     s, st, b = mtt.from_numpy((state, statics, bg))
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=2, save_every=1)
-    for kw in (dict(source=(s.rays, st)), dict(wind_fn=lambda t: (0.0, 0.0)),
-               dict(sort_every=10), dict(remat=True), dict(axis_name="rays")):
+    for kw in (dict(remat=True), dict(axis_name="rays")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mtt.simulate(s, st, b, tcfg, run, **kw)
-    with pytest.raises(NotImplementedError):
-        mtt.simulate(s, st, b, tcfg.replace(cull=True), run)
+    with pytest.raises(ValueError, match="source_key"):
+        mtt.simulate(s, st, b, tcfg.replace(relaunch=True), run,
+                     source=lambda key: (s.rays, st))
     with pytest.raises(TypeError, match="dtype"):
         mtt.simulate(s, st, b, tcfg.replace(dtype="float32"), run)
     with pytest.raises(ValueError, match="max_span"):

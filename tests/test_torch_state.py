@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,8 +89,18 @@ def test_gaussian_spectrum_source_matches(dtype):
         x = np.asarray(x)
         assert y.dtype == (torch.bool if x.dtype == bool else getattr(torch, dtype))
         np.testing.assert_allclose(y.numpy(), x, rtol=rtol, atol=0)
-    with pytest.raises(NotImplementedError):
-        mtt.gaussian_spectrum_source(mtt.REFERENCE_RUN_CONFIG, bgb, 8, key=1)
+    # a keyed draw changes only m, r and dens: its other fields are JAX's
+    kr, ks = mtt.gaussian_spectrum_source(
+        mtt.ModelConfig(**dataclasses.asdict(cfg)), bgb, 777,
+        dtype=getattr(torch, dtype), key=torch.Generator().manual_seed(1), **kw)
+    jr, js = mt.gaussian_spectrum_source(cfg, bga, 777, dtype=getattr(jnp, dtype),
+                                         key=jax.random.PRNGKey(1), **kw)
+    for f in ("lam", "phi", "dr", "k", "l", "dm"):
+        np.testing.assert_array_equal(getattr(kr, f).numpy(),
+                                      np.asarray(getattr(jr, f)))
+    for x, y in zip(js, ks):
+        np.testing.assert_array_equal(y.numpy(), np.asarray(x))
+    assert kr.m.dtype == getattr(torch, dtype) and not torch.equal(kr.m, rb.m)
 
 
 @pytest.mark.parametrize("profile", [
