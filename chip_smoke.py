@@ -38,7 +38,13 @@ use), then, in order:
    ``save_every=72``: exactly 10 K5 launches, a finite final state, K5
    against its twin and against Path A over 9 steps (online and offline,
    3e-5), one step's wind increment within 1e-6 of the float64 plain path,
-   two runs bitwise equal, times; then 1e6 rays for 20 steps;
+   two runs bitwise equal, times; K5's device time per step in 10-step
+   launches at 1e5 and 1e6 rays, on the launch state and after a day, with
+   the prognostic wind and without (the difference is what the flux's
+   deposit, reduce and grid-wide wait cost), and its block plan against the
+   Python mirror with the share of tiles held on chip; K5 at 2e6 rays (past
+   the on-chip capacity) against its twin over 3 steps; then 1e6 rays for
+   20 steps through ``simulate_resident``;
 8. K1 on its route: 5 steps with ``rhs_backend="xla",
    projection_backend="pallas"`` at 1e5 rays: 15 K1 launches, within 1e-4
    of the dense ``mxu`` path;
@@ -50,14 +56,21 @@ use), then, in order:
    steps (3e-5, masks equal; also at ``m_max = pi/1500``, where culls fire
    in those steps, with relaunch and without), K6 with the
    lifecycle off bitwise K5, the day's wall against Path C (``simulate``
-   with the lifecycle, K4) and Path B (K5, no lifecycle), and a profile;
+   with the lifecycle, K4) and Path B (K5, no lifecycle), a profile, and
+   K6's device time per step in 10-step launches;
 11. the launch sort at 1e6 rays over the Path D day: sorted and unsorted
    runs in turns, bitwise the same rays, both day walls;
 12. Path E, ``configs[4]`` (``benchmarks/run.py:420-434``): 8 members of
    125,000 rays in one K7 launch per 72 steps over a day: exactly 10 K7
    launches, members 0 and 7 of a perturbed ensemble within 1e-5 of their
-   own K6 runs over 9 steps, K7 against its twin over 3 steps, and the
-   day's wall against 8 sequential K6 days.
+   own K6 runs over 9 steps, K7 against its twin over 3 steps, the day's
+   wall against 8 sequential K6 days, and K7's device time per step in
+   10-step launches.
+
+Every kernel's entry in the summary line carries its bound: the larger of
+its bytes over the H100's memory rate and its operations over its f32 rate
+(``bound``; operations counted from ``csrc/ray_physics.cuh``, the deposit's
+by the cells this run's rays cover).
 
 Any failed check raises and the exit code is nonzero.  Without a CUDA
 device the script fails at once.  Its second-to-last lines are a JSON
@@ -98,6 +111,23 @@ KERNEL_COUNTS = (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
 STREAM_STEPS = 72      # steps per K6/K7 launch in the day, as K5's
 M_MAX_D = 2.0 * math.pi / 300.0    # configs[3] (benchmarks/run.py:407)
 N_MEMBERS, N_PER_MEMBER = 8, 125_000   # configs[4] (benchmarks/run.py:425-428)
+TIMED_STEPS = 10       # steps per timed K5-K7 launch (device time per step)
+N_ABOVE = 2_000_000    # a K5 run past the on-chip capacity (1,081,344 rays)
+
+# The bound of a kernel: the larger of its
+# bytes (each input read once, each output written once) over the H100's
+# 3.35 TB/s and its operations over the 67 TFLOP/s of f32 outside the tensor
+# cores, both at the 700 W limit.  Operations per ray, counted from
+# csrc/ray_physics.cuh: the windowed RHS of one stage without the deposit
+# (dispersion and deposit inputs 44, window bounds 8, three lookups 30,
+# tendencies with online saturation 38), the three RK3 field updates, and
+# the deposit per covered cell (span test, overlap, two products, two
+# float64 conversions and sums).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+RHS_OPS = 120
+RK3_OPS = 12
+DEPOSIT_CELL_OPS = 11
 
 
 def log(*a):
@@ -157,6 +187,54 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """``(bound_ms, bound_by)`` for the bytes and operations of one call."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def covered_cells(r_lo, r_up, active, dz: float, nzmax: int) -> float:
+    """Mean deposit cells per active ray, by cell_span's rule (deposit.cuh)."""
+    lo = torch.clamp(torch.trunc(r_lo / dz), 0, nzmax)
+    up = torch.clamp(torch.trunc(r_up / dz + 1.0), 0, nzmax)
+    return float(((up - lo) * active).sum() / active.sum().clamp(min=1))
+
+
+def state_cells(state, bg) -> float:
+    """covered_cells of a state on its background's deposit grid."""
+    r, hdr = state.rays.r, 0.5 * state.rays.dr
+    dz = float(bg.centers[1] - bg.centers[0])
+    return covered_cells(r - hdr, r + hdr, torch.ones_like(r), dz,
+                         bg.centers.shape[0] - 2)
+
+
+def step_ops(n: int, cells: float, deposit: bool = True) -> float:
+    """Operations of one whole RK3 step of n rays (K5-K7)."""
+    return 3 * n * (RHS_OPS + RK3_OPS + (DEPOSIT_CELL_OPS * cells if deposit else 0))
+
+
+def launch_ms(fn, init, reps: int = 5) -> float:
+    """Median device time of ``fn(work)``, ``work`` restored from ``init``
+    (untimed) before each sample, the events behind a sleep kernel."""
+    work = [x.clone() for x in init]
+    times = []
+    for i in range(reps + 1):
+        for w, x in zip(work, init):
+            w.copy_(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        fn(work)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def nvidia_smi() -> str:
@@ -244,6 +322,14 @@ def tree_device(tree):
 # phases
 # ---------------------------------------------------------------------------
 
+def timing(res: dict) -> dict:
+    """The timing keys of a kernel's entry in the summary line.  No single
+    PyTorch call computes any of these kernels' functions: library_ms is
+    null."""
+    return {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+        "library_ms": None}
+
+
 def phase_k1(n: int, device) -> dict:
     args = deposit_population(n, device)
     args64 = [a.double() if a.is_floating_point() else a for a in args]
@@ -263,6 +349,11 @@ def phase_k1(n: int, device) -> dict:
         "plain_ms": cuda_ms(lambda: projection_cuda.project_pallas_reference(*args),
                             iters=5),
     }
+    # bytes: two values, both edges, the phase volume and the mask per ray
+    grid = args[5]
+    cells = covered_cells(args[1], args[2], args[4].float(),
+                          float(grid[1] - grid[0]), grid.shape[0] - 2)
+    res["bound_ms"], res["bound_by"] = bound(21 * n, n * DEPOSIT_CELL_OPS * cells)
     log(f"[2] K1 n={n}: kernel vs f32 twin {res['err_vs_twin']:.3e}, "
         f"kernel vs f64 twin {res['err_vs_f64']:.3e} "
         f"(f32 twin vs f64 {res['twin_err_vs_f64']:.3e}), "
@@ -300,6 +391,9 @@ def phase_k2(state, statics, bg, cfg, label: str) -> dict:
             lambda: rhs_cuda.rhs_fused_reference(DT, state, statics, bg, cfg),
             iters=5),
     }
+    # bytes: 11 fields and the mask in, three tendencies out, per ray
+    res["bound_ms"], res["bound_by"] = bound(
+        57 * n, n * (RHS_OPS + DEPOSIT_CELL_OPS * state_cells(state, bg)))
     log(f"[3] K2 n={n} ({label}): kernel vs twin "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; flux vs f64 twin {res['flux_err_vs_f64']:.3e}; bitwise repeat "
@@ -346,6 +440,8 @@ def phase_k3(state, statics, bg, cfg, label: str) -> dict:
             *prepared[:5], cfg.saturate_online, cfg.faithful_saturation,
             window), iters=5),
     }
+    res["bound_ms"], res["bound_by"] = bound(
+        57 * n, n * (RHS_OPS + DEPOSIT_CELL_OPS * state_cells(state, bg)))
     log(f"[4] K3 n={n} ({label}, c_pad/W/W2 {window}): kernel vs twin "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; flux vs f64 twin {res['flux_err_vs_f64']:.3e}; bitwise repeat "
@@ -504,8 +600,11 @@ def phase_path_a(device, smi: str) -> dict:
     plain_ms = cuda_ms(lambda: rhs_cuda_windowed.stage_reference(
         params, scalars, tables, fields, statics.active, window, cfg, stage, q),
         iters=5)
-    log(f"[6]   K4 one step vs twin: {fmt(k4_errs)}; one launch {ms:.4f} ms, "
-        f"twin {plain_ms:.4f} ms")
+    # bytes: K3's plus q in and out, per ray (a later stage reads q)
+    k4_bound = bound(81 * N_MAIN, N_MAIN * (RHS_OPS + RK3_OPS + DEPOSIT_CELL_OPS
+                                           * state_cells(state, bg)))
+    log(f"[6]   K4 one step vs twin: {fmt(k4_errs)}; one launch {ms:.4f} ms "
+        f"(bound {k4_bound[0]:.5f} ms, {k4_bound[1]}), twin {plain_ms:.4f} ms")
 
     # the generic integrators take K3: 4 launches per rk4 step
     cfg4 = cfg.replace(integrator="rk4")
@@ -543,7 +642,8 @@ def phase_path_a(device, smi: str) -> dict:
             "full_start": float(fb_start.full_rate),
             "full_end": float(fb_end.full_rate),
             "traj_errs": errs, "k4_errs": k4_errs, "max_abs_err": k4_abs,
-            "ms": ms, "plain_ms": plain_ms, "rk4_errs": rk4_errs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1], "rk4_errs": rk4_errs,
             "ms_per_step_1e6": wall6 * 50, "ray_steps_per_s_1e6": 1e6 * 20 / wall6,
             "ms_1e6": ms6, "k3_ms_1e6": k3_ms6}
 
@@ -626,28 +726,80 @@ def phase_path_b(device, smi: str) -> dict:
         f"{wind_err:.3e}")
     check(wind_err < F64_BAR, "K5 wind increment vs float64")
 
-    # one launch of one step: device time of kernel and twin
-    ops = step_cuda.operands(state, statics, bg, cfg, DT)
-    uv = torch.stack([state.mean.u, state.mean.v])
-    work = [x.clone() for x in (state.rays.dens, state.rays.r, state.rays.m, uv)]
-    ms = cuda_ms(lambda: step_cuda.launch(ops, *work, 1))
-    plain_ms = cuda_ms(lambda: step_cuda.step_resident_reference(
-        ops, state.rays.dens, state.rays.r, state.rays.m, uv, 1), iters=3)
-    log(f"[7]   one launch of one step: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    # device time per step in launches of TIMED_STEPS steps, at 1e5 and 1e6
+    # rays, on the launch state and the state after a day, with the
+    # prognostic wind and without (the difference: the cost of the flux's
+    # deposit, reduce and grid-wide wait); the block plan against its mirror
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_step, plans = {}, {}
+    for n, setup in ((N_MAIN, (cfg, bg, state, statics)),
+                     (1_000_000, bench_setup(1_000_000, device, window_cells=-1))):
+        c, b, s, st = setup
+        ops = step_cuda.operands(s, st, b, c, DT)
+        init = [s.rays.dens, s.rays.r, s.rays.m, torch.stack([s.mean.u, s.mean.v])]
+        spread = [x.clone() for x in init]
+        for _ in range(DAY_STEPS // RESIDENT_STEPS):
+            step_cuda.launch(ops, *spread, RESIDENT_STEPS)
+        for label, start in (("launch", init), ("spread", spread)):
+            for prog in (True, False):
+                o = ops._replace(prognostic=prog)
+                per_step[f"{n}_{label}_prog{int(prog)}"] = launch_ms(
+                    lambda w: step_cuda.launch(o, *w, TIMED_STEPS), start) / TIMED_STEPS
+        plan = step_cuda.device_plan(n, 1, ops, False)
+        mirror = step_cuda.resident_plan(n, 1, ops.c_pad, ops.n_tab - 1,
+                                         ops.online, ops.prognostic, sms=sms)
+        check(plan == mirror, f"K5 plan at {n}: {plan} against the mirror {mirror}")
+        plans[n] = plan._asdict() | {"on_chip_share": plan.on_chip_share}
+        log(f"[7]   K5 at {n} rays, ms per step in {TIMED_STEPS}-step launches on "
+            f"{smi}: launch state {per_step[f'{n}_launch_prog1']:.5f} with the "
+            f"prognostic wind, {per_step[f'{n}_launch_prog0']:.5f} without "
+            f"(difference {per_step[f'{n}_launch_prog1'] - per_step[f'{n}_launch_prog0']:.5f}); "
+            f"after {DAY_STEPS} steps {per_step[f'{n}_spread_prog1']:.5f} and "
+            f"{per_step[f'{n}_spread_prog0']:.5f}; plan {tuple(plan)}, tiles on "
+            f"chip {plan.on_chip_share:.4f} (mirror equal)")
+        if n == N_MAIN:
+            k5_cells = state_cells(s, b)
+            ms = per_step[f"{n}_launch_prog1"]
+            plain_ms = cuda_ms(lambda: step_cuda.step_resident_reference(
+                ops, *init, 1), iters=3)
+        del setup, c, b, s, st, ops, init, spread
 
-    # 1e6 rays
+    # past the on-chip capacity: tiles streamed through device memory
+    cfg2, bg2, state2, statics2 = bench_setup(N_ABOVE, device, window_cells=-1)
+    ops2 = step_cuda.operands(state2, statics2, bg2, cfg2, DT)
+    init2 = [state2.rays.dens, state2.rays.r, state2.rays.m,
+             torch.stack([state2.mean.u, state2.mean.v])]
+    plan2 = step_cuda.device_plan(N_ABOVE, 1, ops2, False)
+    got2 = step_cuda.launch(ops2, *[x.clone() for x in init2], 3)
+    twin2 = step_cuda.step_resident_reference(ops2, *init2, 3)
+    above = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m", "u"),
+                                             (*twin2[:3], twin2[3][0]),
+                                             (*got2[:3], got2[3][0]))}
+    log(f"[7]   K5 at {N_ABOVE} rays (tiles on chip {plan2.on_chip_share:.4f}), "
+        f"3 steps vs twin: {fmt(above)}")
+    for k, v in above.items():
+        check(v < RESIDENT_BAR, f"K5 above the on-chip capacity, {k}")
+    above_abs = max(float((w.double() - g.double()).abs().max())
+                    for w, g in zip(twin2[:3], got2[:3]))
+    del cfg2, bg2, state2, statics2, ops2, init2, got2, twin2
+
+    # 1e6 rays through simulate_resident
     cfg6, bg6, state6, statics6 = bench_setup(1_000_000, device, window_cells=-1)
     timed_resident(state6, statics6, bg6, cfg6, 2, 1)
     final6, _, wall6 = timed_resident(state6, statics6, bg6, cfg6, 20, 10)
     check(finite(final6), "Path B at 1e6 not finite")
     log(f"[7]   1e6 rays, 20 steps in 2 launches: {wall6 * 50:.4f} ms per "
-        f"step, ray-steps/s {1e6 * 20 / wall6:.4e}")
+        f"step of wall, ray-steps/s {1e6 * 20 / wall6:.4e} on {smi}")
+    bound_ms, bound_by = bound(57 * N_MAIN / TIMED_STEPS, step_ops(N_MAIN, k5_cells))
     return {"launches": counts["K5"], "sim_day_wall_s": wall,
             "sim_day_wall_s_again": wall2, "ray_steps_per_s": rate,
             "profile": prof, "nine_steps": res9, "wind_err_vs_f64": wind_err,
-            "max_abs_err": res9["online"]["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "ms_per_step_1e6": wall6 * 50,
-            "ray_steps_per_s_1e6": 1e6 * 20 / wall6}
+            "max_abs_err": max(res9["online"]["max_abs_err"], above_abs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "per_step_ms": per_step, "plans": plans,
+            "above_capacity": {"n": N_ABOVE, "errs": above,
+                               "on_chip_share": plan2.on_chip_share},
+            "ms_per_step_1e6": wall6 * 50, "ray_steps_per_s_1e6": 1e6 * 20 / wall6}
 
 
 def phase_k1_route(device) -> dict:
@@ -837,29 +989,35 @@ def phase_path_d(device, smi: str) -> dict:
     log(f"[10]   the day: Path D {wall:.4f} s, Path C (simulate + lifecycle, "
         f"K4) {wall_c:.4f} s ({N_MAIN * DAY_STEPS / wall_c:.4e} ray-steps/s), "
         f"Path B (K5, no lifecycle) {wall_b:.4f} s "
-        f"({N_MAIN * DAY_STEPS / wall_b:.4e})")
+        f"({N_MAIN * DAY_STEPS / wall_b:.4e}) on {smi}")
 
-    # one launch of one step: device time of K6 and its twin
+    # device time per step of K6 in launches of TIMED_STEPS steps (and its
+    # twin over one step); no prognostic wind, so no deposit
     ops = step_cuda.operands(state, statics, bg, cfg, DT)
     src = step_cuda_stream._template(source, state.rays.r)
     life = step_cuda_stream.lifecycle_for(bg, cfg, src)
     uv = torch.stack([state.mean.u, state.mean.v])[None].contiguous()
-    w1 = step_cuda_stream._wind_table(wind, 0.0, 0, 1, DT, bg.centers.shape[0],
-                                      device)
+    table = step_cuda_stream._wind_table(wind, 0.0, 0, TIMED_STEPS, DT,
+                                         bg.centers.shape[0], device)
     act = statics.active.to(torch.uint8)
-    work = [x.clone() for x in (state.rays.dens, state.rays.r, state.rays.m, uv)]
-    work_act = act.clone()
-    ms = cuda_ms(lambda: step_cuda_stream.launch(ops, *work, work_act, 1, life, w1))
+    init = [state.rays.dens, state.rays.r, state.rays.m, uv, act]
+    ms = launch_ms(lambda w: step_cuda_stream.launch(ops, *w, TIMED_STEPS, life,
+                                                     table), init) / TIMED_STEPS
     plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
-        ops, state.rays.dens, state.rays.r, state.rays.m, uv, act, 1, life, w1),
-        iters=3)
-    log(f"[10]   one launch of one step: K6 {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        ops, *init, 1, life, table[:1]), iters=3)
+    # bytes: 45 in and 13 out per ray a launch, the template's mask read a step
+    bound_ms, bound_by = bound((58 / TIMED_STEPS + 1) * N_MAIN,
+                               step_ops(N_MAIN, 0.0, deposit=False))
+    log(f"[10]   K6 {ms:.5f} ms per step in {TIMED_STEPS}-step launches on "
+        f"{smi} (bound {bound_ms:.5f} ms, {bound_by}), twin {plain_ms:.4f} ms "
+        f"per step")
     return {"launches": counts["K6"], "sim_day_wall_s": wall,
             "ray_steps_per_s": rate, "relaunched": relaunched, "culled": culled,
             "profile": prof, "twin": twin, "k5_bitwise": bitwise,
             "path_c_sim_day_wall_s": wall_c, "path_b_sim_day_wall_s": wall_b,
             "max_abs_err": max(t["max_abs_err"] for t in twin.values()),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_launch_sort(device, smi: str) -> dict:
@@ -969,18 +1127,24 @@ def phase_path_e(device, smi: str) -> dict:
                   for w, g in zip(tw[:3], k7[:3]))
     for k, v in twin_errs.items():
         check(v < RESIDENT_BAR, f"K7 vs twin {k}")
-    work = [x.clone() for x in (*base, uv)]
-    work_act = act.clone()
-    ms = cuda_ms(lambda: step_cuda_stream.launch(ops, *work, work_act, 1,
-                                                 n_members=N_MEMBERS))
+    ms = launch_ms(lambda w: step_cuda_stream.launch(
+        ops, *w, TIMED_STEPS, n_members=N_MEMBERS), [*base, uv, act]) / TIMED_STEPS
     plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
         ops, *base, uv, act, 1, n_members=N_MEMBERS), iters=2, warmup=1)
-    log(f"[12]   3 steps, K7 vs twin: {fmt(twin_errs)}; one launch of one step:"
-        f" K7 {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    n_all = N_MEMBERS * N_PER_MEMBER
+    bound_ms, bound_by = bound(57 * n_all / TIMED_STEPS,
+                               step_ops(n_all, state_cells(fstate, bg_p)))
+    plan = step_cuda.device_plan(N_PER_MEMBER, N_MEMBERS, ops, True)
+    log(f"[12]   3 steps, K7 vs twin: {fmt(twin_errs)}; K7 {ms:.5f} ms per step "
+        f"in {TIMED_STEPS}-step launches on {smi} (bound {bound_ms:.5f} ms, "
+        f"{bound_by}), twin {plain_ms:.4f} ms per step; plan {tuple(plan)}, "
+        f"tiles on chip {plan.on_chip_share:.4f}")
     return {"launches": counts["K7"], "sim_day_wall_s": wall,
             "ray_steps_per_s": rate, "sequential_k6_s": walls_seq,
             "profile": prof, "member_errs": member_errs, "twin_errs": twin_errs,
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "on_chip_share": plan.on_chip_share}
 
 
 def main() -> int:
@@ -1032,39 +1196,39 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/projection_pallas.py:109",
          "launches": route["launches"],
          "max_abs_err": k1[N_MAIN]["max_abs_err"],
-         "ms": k1[N_MAIN]["ms"], "plain_ms": k1[N_MAIN]["plain_ms"]},
+         **timing(k1[N_MAIN])},
         {"name": "K2 fused RHS (rhs_fused)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/rhs_fused.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
          "launches": k2_day["launches"],
          "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"]),
-         "ms": k2_spread["ms"], "plain_ms": k2_spread["plain_ms"]},
+         **timing(k2_spread)},
         {"name": "K3 windowed fused RHS (rhs_fused_windowed)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:338",
          "launches": path_a["k3_launches"],
          "max_abs_err": max(k3[N_MAIN]["max_abs_err"], k3["mixed"]["max_abs_err"]),
-         "ms": k3[N_MAIN]["ms"], "plain_ms": k3[N_MAIN]["plain_ms"]},
+         **timing(k3[N_MAIN])},
         {"name": "K4 stage-fused windowed RHS (rk3_step_fused_windowed)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
          "launches": path_a["launches"], "max_abs_err": path_a["max_abs_err"],
-         "ms": path_a["ms"], "plain_ms": path_a["plain_ms"]},
+         **timing(path_a)},
         {"name": "K5 whole-run kernel (simulate_resident)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
          "launches": path_b["launches"], "max_abs_err": path_b["max_abs_err"],
-         "ms": path_b["ms"], "plain_ms": path_b["plain_ms"]},
+         **timing(path_b)},
         {"name": "K6 whole-run kernel with the lifecycle (simulate_streaming)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
          "launches": path_d["launches"], "max_abs_err": path_d["max_abs_err"],
-         "ms": path_d["ms"], "plain_ms": path_d["plain_ms"]},
+         **timing(path_d)},
         {"name": "K7 ensemble whole-run kernel (simulate_streaming_ensemble)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
          "launches": path_e["launches"], "max_abs_err": path_e["max_abs_err"],
-         "ms": path_e["ms"], "plain_ms": path_e["plain_ms"]},
+         **timing(path_e)},
     ]
     summary = {
         "k1": {str(n): v for n, v in k1.items()},
@@ -1076,7 +1240,8 @@ def main() -> int:
     }
     log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels
-              for f in ("max_abs_err", "ms", "plain_ms")), "non-finite summary")
+              for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
+          "non-finite summary")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -74,8 +74,9 @@ SIGNATURES = {
         _I, _I, _I, _F, _F, _I,       # saturate_online faithful staged cc bc first
         _P,                           # stream
     ],
-    "msgwam_step_resident_blocks": [
-        _I, _P,                       # n, out: n_blocks
+    "msgwam_step_resident_plan": [
+        _I, _I, _I, _I, _I, _I, _I,   # n_per n_members c_pad n_flux online prognostic stream
+        _P,                           # out[7]
     ],
     "msgwam_step_resident": [
         _F, _F, _F, _F, _F, _F, _F, _F, _F,   # g0c dz g0f dzf dt bvf kappa f0 rdiv
@@ -85,12 +86,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,       # dens r m qd qr qm
         _P, _P, _P,                   # r_prev m_prev dens_prop
         _P, _P, _P, _P,               # uv rhobar pg inv_rho
-        _P, _P, _I, _I,               # flux partials n_blocks n_steps
+        _P, _P, _P, _P, _P,           # flux partials sync inv win
+        _I, _I,                       # n_blocks n_steps
         _I, _I, _I,                   # online prognostic faithful
         _P,                           # stream
-    ],
-    "msgwam_step_stream_blocks": [
-        _I, _I, _P,                   # n_per n_members, out: blocks_per_member
     ],
     "msgwam_step_stream": [
         _F, _F, _F, _F, _F, _F, _F, _F, _F,   # g0c dz g0f dzf dt bvf kappa f0 rdiv
@@ -100,7 +99,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,       # dens r m qd qr qm
         _P, _P, _P,                   # r_prev m_prev dens_prop
         _P, _P, _P, _P,               # uv rhobar pg inv_rho
-        _P, _P, _I, _I,               # flux partials blocks_per_member n_steps
+        _P, _P, _P, _P, _P,           # flux partials sync inv win
+        _I, _I,                       # blocks_per_member n_steps
         _I, _I, _I,                   # online prognostic faithful
         _I, _F, _F, _F,               # cull m_max face_lo face_hi
         _P, _P, _P, _P,               # src_dens src_r src_m src_act

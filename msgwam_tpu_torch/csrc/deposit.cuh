@@ -1,6 +1,6 @@
 // Ray -> grid flux deposit, shared by the projection kernel (K1,
 // projection.cu), the fused RHS kernels (K2, rhs_fused.cu; K3/K4,
-// rhs_windowed.cu) and the whole-run kernel (K5, step_resident.cu).
+// rhs_windowed.cu) and the whole-run kernel (K5-K7, step_resident.cu).
 //
 // Reference semantics (lib/libprop.py:121-160, kept by both Pallas kernels):
 // a ray volume [r_low, r_up] covers cells nlow <= c < nup, with
@@ -18,9 +18,10 @@
 // shuffles.  A ray covers 1-3 cells at the bench population, so a whole warp
 // shares each cell's walk.  The block adds each cell's tile sum to a
 // float64 accumulator in shared memory and ends with one per-block partial;
-// a second pass adds the partials in block order (a kernel of its own, or a
-// phase of K5 after a grid sync).  No float atomics: the result is bitwise
-// reproducible for a given block count.
+// a second pass adds the partials in block order (a kernel of its own here;
+// K5-K7 have their own, step_resident.cu's FluxSync, and walk tiles that
+// touch at most 8 cells with several warps per cell).  No float atomics:
+// the result is bitwise reproducible for a given block count.
 #pragma once
 
 #include <climits>
@@ -153,7 +154,7 @@ __device__ __forceinline__ void deposit_store(const Acc& acc, double* partials,
 // by the whole block: each thread adds a strided set of block partials,
 // then a fixed shared-memory tree.  ``s`` is kThreads doubles of shared
 // scratch, free again when this returns.  The partials are read past L1
-// (__ldcg): K5 reads them right after a grid sync.
+// (__ldcg), as written by other blocks.
 __device__ __forceinline__ double sum_partials(const double* partials,
                                                int n_blocks, int n_cells,
                                                int vc, double* s) {

@@ -1,6 +1,10 @@
 // Per-ray physics of the hprop=False right-hand side, and the per-tile
 // height window, shared by the fused RHS kernels (K2, rhs_fused.cu;
-// K3/K4, rhs_windowed.cu) and the whole-run kernel (K5, step_resident.cu).
+// K3/K4, rhs_windowed.cu) and the whole-run kernel (K5-K7,
+// step_resident.cu).  The terms a ray's frozen fields fix (RayInv) are
+// split from those of each stage (stage_terms), so that the whole-run
+// kernel computes them once per launch; the split keeps every expression's
+// order of operations.
 //
 // The physics is the Pallas kernels' (msgwam_tpu/ops/rhs_pallas.py:_kernel
 // and its copies in rhs_pallas_windowed.py and step_pallas.py), written
@@ -36,7 +40,7 @@ constexpr int kEmptyLo = 1000000000;      // an inactive ray's window bounds
 constexpr int kEmptyHi = -1000000000;
 
 // The 11 f32 ray fields and the activity mask, each (n,).  dens, r and m
-// may alias the outputs of K4 and K5, which update them in place.
+// may alias the outputs of K4-K7, which update them in place.
 struct RayFields {
   const float *dens, *r, *dr, *k, *l, *m, *dm, *phi, *dkk, *dll, *area;
   const unsigned char* act;
@@ -88,33 +92,63 @@ struct RayTerms {
   float qf = 0.0f, qr = 0.0f;   // hat coordinates: shear at r, rho at r_fin
 };
 
-__device__ __forceinline__ RayTerms ray_terms(const Ray& y, const Geometry& g,
-                                              float dt, float bvf) {
+// The terms of a ray that its frozen fields fix: computed once per launch
+// by the whole-run kernel (K5-K7), once per call by K2-K4.  Each is a
+// subexpression of the formulas below, evaluated in the same order, so the
+// split changes no result: ff2 = ff ff, bk = bvf^2 kh2, hdr = dr / 2,
+// pv = |dkk dll dm|, pvol = dkk dll (area / dr).
+struct RayInv {
+  float hdr = 0.0f, k = 0.0f, l = 0.0f, kh2 = 0.0f, bk = 0.0f, ff2 = 0.0f;
+  float pv = 0.0f, pvol = 0.0f;
+};
+
+__device__ __forceinline__ RayInv ray_invariants(const Ray& y, float bvf) {
+  RayInv v;
+  const float ff = 2.0f * kRotEarth * sinf(y.phi);
+  v.ff2 = ff * ff;
+  v.kh2 = y.k * y.k + y.l * y.l;
+  v.bk = bvf * bvf * v.kh2;
+  v.hdr = 0.5f * y.dr;
+  v.k = y.k;
+  v.l = y.l;
+  v.pv = fabsf(y.dkk * y.dll * y.dm);
+  const float dmm_fin = y.area / y.dr;       // dr tendency = 0
+  v.pvol = y.dkk * y.dll * dmm_fin;
+  return v;
+}
+
+// The terms of one stage from the invariants and the evolving dens, r, m.
+__device__ __forceinline__ RayTerms stage_terms(const RayInv& v, float dens,
+                                                float r, float m, bool act,
+                                                const Geometry& g, float dt) {
   RayTerms t;
   // dispersion: one reciprocal + one rsqrt, as the Pallas kernel
-  const float ff = 2.0f * kRotEarth * sinf(y.phi);
-  t.kh2 = y.k * y.k + y.l * y.l;
-  const float k2 = t.kh2 + y.m * y.m;
+  t.kh2 = v.kh2;
+  const float k2 = t.kh2 + m * m;
   t.ik2 = 1.0f / k2;
-  const float om2 = (bvf * bvf * t.kh2 + ff * ff * y.m * y.m) * t.ik2;
-  t.cgr = -y.m * (om2 - ff * ff) * rsqrtf(om2) * t.ik2;
+  const float om2 = (v.bk + v.ff2 * m * m) * t.ik2;
+  t.cgr = -m * (om2 - v.ff2) * rsqrtf(om2) * t.ik2;
 
   // flux deposit inputs (independent of the winds with hprop off)
-  t.r_lo = y.r - 0.5f * y.dr;
-  t.r_up = y.r + 0.5f * y.dr;
+  t.r_lo = r - v.hdr;
+  t.r_up = r + v.hdr;
   t.live = cell_span(t.r_lo * g.idz, t.r_up * g.idz + 1.0f, g.nzmax, t.nlow,
-                     t.nup) && y.act;
+                     t.nup) && act;
   if (t.live) {
-    const float pv = fabsf(y.dkk * y.dll * y.dm);
-    const float fv = t.cgr * y.dens * g.idz;
-    t.fvk = fv * y.k * pv;
-    t.fvl = fv * y.l * pv;
+    const float fv = t.cgr * dens * g.idz;
+    t.fvk = fv * v.k * v.pv;
+    t.fvl = fv * v.l * v.pv;
   }
 
-  t.qf = (fminf(fmaxf(y.r, g.g0f), g.hi_f) - g.g0f) * g.idz;
-  const float r_fin = y.r + t.cgr * dt;
+  t.qf = (fminf(fmaxf(r, g.g0f), g.hi_f) - g.g0f) * g.idz;
+  const float r_fin = r + t.cgr * dt;
   t.qr = (fminf(fmaxf(r_fin, g.g0c), g.hi_c) - g.g0c) * g.idz;
   return t;
+}
+
+__device__ __forceinline__ RayTerms ray_terms(const Ray& y, const Geometry& g,
+                                              float dt, float bvf) {
+  return stage_terms(ray_invariants(y, bvf), y.dens, y.r, y.m, y.act, g, dt);
 }
 
 // Two-point linear interpolation of a table of ``len`` entries at the hat
@@ -143,22 +177,33 @@ struct Tendencies {
 
 // dm/dt and the online saturation tendency from the looked-up shears and
 // rho; the tendencies of an inactive ray are 0.
+__device__ __forceinline__ Tendencies stage_tendencies(
+    const RayInv& v, float dens, float m, bool act, const RayTerms& t,
+    float du, float dv, float rho, float dt, float bvf, float kappa, float f0,
+    bool online, bool faithful) {
+  const float dmm = -(v.k * du + v.l * dv);
+  float dst = 0.0f;
+  if (online) {
+    const float m_fin = m + dmm * dt;
+    const float omh2 = (v.bk + f0 * f0 * m * m) * t.ik2;
+    const float cap = kappa * kappa * 0.5f * rho * omh2 * rsqrtf(omh2) *
+                      bvf * bvf / (m_fin * m_fin * (omh2 - f0 * f0));
+    const float cap_applied = faithful ? cap : cap / v.pvol;
+    if (cap < dens * v.pvol) dst = (cap_applied - dens) * (1.0f / dt);
+  }
+  return {act ? dst : 0.0f, act ? t.cgr : 0.0f, act ? dmm : 0.0f};
+}
+
 __device__ __forceinline__ Tendencies ray_tendencies(
     const Ray& y, const RayTerms& t, float du, float dv, float rho, float dt,
     float bvf, float kappa, float f0, bool online, bool faithful) {
-  const float dmm = -(y.k * du + y.l * dv);
-  float dst = 0.0f;
-  if (online) {
-    const float m_fin = y.m + dmm * dt;
-    const float dmm_fin = y.area / y.dr;     // dr tendency = 0
-    const float omh2 = (bvf * bvf * t.kh2 + f0 * f0 * y.m * y.m) * t.ik2;
-    const float cap = kappa * kappa * 0.5f * rho * omh2 * rsqrtf(omh2) *
-                      bvf * bvf / (m_fin * m_fin * (omh2 - f0 * f0));
-    const float pvol = y.dkk * y.dll * dmm_fin;
-    const float cap_applied = faithful ? cap : cap / pvol;
-    if (cap < y.dens * pvol) dst = (cap_applied - y.dens) * (1.0f / dt);
-  }
-  return {y.act ? dst : 0.0f, y.act ? t.cgr : 0.0f, y.act ? dmm : 0.0f};
+  RayInv v;
+  v.k = y.k;
+  v.l = y.l;
+  v.bk = bvf * bvf * t.kh2;
+  v.pvol = y.dkk * y.dll * (y.area / y.dr);
+  return stage_tendencies(v, y.dens, y.m, y.act, t, du, dv, rho, dt, bvf,
+                          kappa, f0, online, faithful);
 }
 
 // One Williamson RK3 stage of one field (lib/libprop.py:693-698,
@@ -188,23 +233,27 @@ struct WindowScratch {
   int hi[kWarps];
 };
 
-// The tile's window from its rays' bounds, by the whole block.  Returns the
+// The tile's window from its rays' bounds, in two halves around one block
+// barrier: window_stage (every thread, before the barrier) leaves each
+// warp's extremes in ``s``; window_read (every thread, after it) returns the
 // tier (1: width w1, 2: width w2, 0: full width) and sets the window
-// [base, base + width) of the tile's table reads.  Every thread of the
-// block calls it; the caller __syncthreads() at least once before the next
-// call (the deposit does).
-__device__ __forceinline__ int tile_window(WindowScratch& s, int lo, int hi,
-                                           int c_pad, int w1, int w2,
-                                           int& base, int& width) {
+// [base, base + width) of the tile's table reads.  ``s`` is free again
+// after the next barrier.
+__device__ __forceinline__ void window_stage(WindowScratch& s, int lo, int hi) {
   lo = __reduce_min_sync(0xffffffffu, lo);
   hi = __reduce_max_sync(0xffffffffu, hi);
   if ((threadIdx.x & 31) == 0) {
     s.lo[threadIdx.x >> 5] = lo;
     s.hi[threadIdx.x >> 5] = hi;
   }
-  __syncthreads();
+}
+
+__device__ __forceinline__ int window_read(const WindowScratch& s, int c_pad,
+                                           int w1, int w2, int& base,
+                                           int& width) {
+  int lo = s.lo[0], hi = s.hi[0];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 1; w < kWarps; ++w) {
     lo = min(lo, s.lo[w]);
     hi = max(hi, s.hi[w]);
   }
@@ -221,6 +270,17 @@ __device__ __forceinline__ int tile_window(WindowScratch& s, int lo, int hi,
   base = 0;
   width = c_pad;
   return 0;
+}
+
+// Both halves with the barrier between them, by the whole block.  The
+// caller __syncthreads() at least once before the next call (the deposit
+// does).
+__device__ __forceinline__ int tile_window(WindowScratch& s, int lo, int hi,
+                                           int c_pad, int w1, int w2,
+                                           int& base, int& width) {
+  window_stage(s, lo, hi);
+  __syncthreads();
+  return window_read(s, c_pad, w1, w2, base, width);
 }
 
 }  // namespace msgwam

@@ -1,92 +1,115 @@
 // K5: whole Williamson RK3 steps of the coupled hprop=False model in one
-// launch, on Hopper.
+// launch, on Hopper, with the ray state kept on chip for the whole launch.
 //
 // Replaces msgwam_tpu/ops/step_pallas.py:_kernel (entry points
-// _megakernel_call, _simulate_resident_impl, simulate_resident).  One launch
-// runs n_steps steps; per step, per RK3 stage:
-//   1. every block walks its 256-ray tiles: the windowed RHS of
-//      ray_physics.cuh (the window rule of K3), the stage update of
-//      dens/r/m in place (rk3_stage; in offline mode r and m are saved
-//      before the first stage writes them), and the flux deposit into the
-//      block's float64 sums, stored as the block's partial;
-//   2. grid sync;
-//   3. the blocks share out the (var, cell) entries of the flux and add the
-//      partials of each in a fixed order (deposit.cuh's sum_partials);
-//   4. grid sync;
-//   5. every block reads the flux and updates its own copy of the wind: the
-//      flux divergence (boundary padding by copy), Coriolis f0, the pressure
-//      gradient times the precomputed 1/rho, and the q/y stage update of u
-//      and v (step_pallas.py:384-402); then the next stage's shear tables
-//      from the new u, v.  Every block holds the same wind, computed from
-//      the same inputs in the same order, so the copies stay bitwise equal.
-// In offline mode a fourth phase follows the third stage: the direct
-// saturation with finite-difference rates across the step, quirk 2 (the
-// height rate divided by rdiv = 1) included, rho read at r_prev + rate dt
-// (division by dz, as on the TPU) through a W-wide window, and the
-// pre-saturation density written to dens_prop before the cap
-// (step_pallas.py:404-506).  It needs no grid sync: each ray is read and
-// written by the same thread in every phase.
+// _megakernel_call, _simulate_resident_impl, simulate_resident).  On the
+// TPU the kernel kept the rays, the RK3 registers and the wind in VMEM for
+// the whole run over a sequential (steps, stages, tiles) grid.  Here the
+// grid is persistent and cooperative (cudaLaunchCooperativeKernel, every
+// block resident at once, so blocks may wait on each other), and each tile
+// block owns the same 256-ray tiles in every phase (t = rank, rank + n_tb,
+// ...), so it keeps its rays' state:
+//   - dens, r, m, the RK3 registers qd, qr, qm (and, offline, the pre-step
+//     r_prev, m_prev) and the mask of the block's first tile in registers,
+//     of its next n_slots tiles in dynamic shared memory, and of any further
+//     tiles in device memory, streamed as before (the kernel takes any count
+//     that fits the card).  They are loaded once at the launch start and
+//     written back once at its end;
+//   - the read-only terms of each ray (ray_physics.cuh's RayInv: ff^2,
+//     k^2 + l^2, bvf^2 (k^2 + l^2), dr/2, k, l, |dkk dll dm|, dkk dll
+//     area/dr), computed once per launch in the order of operations of
+//     ray_physics.cuh, so every per-ray value is what it was; in shared
+//     memory when every block owns one tile, else in a device-memory scratch
+//     (8 floats per ray).
+// The on-chip capacity (resident_plan below, mirrored by
+// ops/step_cuda.py:resident_plan): 4 blocks of 256 threads per SM, each with
+// smem_per_sm / 4 - reserved = 57,344 bytes of shared memory on an H100
+// (233,472 / 4 - 1,024), of which the static Fixed<kPad> takes 44 kPad +
+// 6,656 (12,288 at kPad = c_pad = 128) and a slot, one tile, 256 (4 f + 1)
+// with f = 6 floats online and 8 offline.  So a block holds 1 + 7 tiles on
+// chip online: 4,224 tiles (1,081,344 rays) on 132 SMs.
 //
-// On the TPU the grid was sequential, (steps, stages, tiles); here the
-// stage boundary is a dependency across the whole grid, so the kernel is
-// persistent and cooperative (cudaLaunchCooperativeKernel, every block
-// resident) and the boundary is grid.sync().  The TPU built host matrices
-// for the shear and the flux divergence to feed its matrix unit
-// (build_operators); here both are two-point differences.  The TPU's
-// 131,072-ray VMEM cap does not apply: the rays live in device memory and
-// the kernel takes any count.  Without a prognostic mean flow there is no
-// wind update and no grid sync at all.
+// The stages are software-pipelined around the one dependency that crosses
+// the grid.  Stage s's ray update (B) needs the wind after stage s - 1's
+// flux, but stage s's deposit (A) needs only the state (hprop off), so:
+//   prologue: A(0);
+//   stage s: [the wind from stage s - 1's flux] B(s) [reduce s] A(s + 1).
+//   A: per tile, the window bounds and (prognostic wind) the deposit inputs
+//      staged together; block barrier; the window kept for B and the
+//      deposit walk into the block's float64 sums; block barrier; at the
+//      end the sums go out as the block's stage partial (publish).
+//   B: per tile, the three lookups through A's window, the tendencies, the
+//      RK3 update of dens, r, m and q in place; after the third stage the
+//      lifecycle (K6/K7) or the offline saturation (its own window, two
+//      barriers).  No barrier otherwise.
+//   reduce: the flux of stage s from the tile blocks' partials (FluxSync);
+//      it runs while the tile blocks deposit stage s + 1, and the blocks
+//      wait for it (one grid-wide wait per stage) only before B(s + 1).
+//   wind: every block updates its own copy: the flux divergence (boundary
+//      padding by copy), Coriolis f0, the pressure gradient times the
+//      precomputed 1/rho, and the q/y stage update of u and v
+//      (step_pallas.py:384-402); then the shear tables.  Every block holds
+//      the same wind, computed from the same inputs in the same order.
+// Without a prognostic mean flow there is no deposit, no reduce and no
+// wait.  The offline saturation (step_pallas.py:404-506: finite-difference
+// rates across the step, quirk 2's height rate divided by rdiv = 1, rho at
+// r_prev + rate dt through a W-wide window, the pre-saturation density of
+// the last step to dens_prop) needs no grid-wide wait: each ray is read and
+// written by the same thread in every phase.  The flux sums keep a fixed
+// order that depends only on the block count, i.e. on n and the device:
+// two runs are bitwise equal, and there are no float atomics.
 //
-// What bounds it on the H100: per stage, the K4 traffic (about 70 B per
-// ray) plus two grid syncs, a few microseconds each; the wind update is
-// ~100 cells.  At 1e5 rays the state (~6 MB) stays in the 50 MB L2.
+// The TPU built host matrices for the shear and the flux divergence to feed
+// its matrix unit (build_operators); here both are two-point differences.
+//
+// What bounds it on the H100: 3 (120 + 12 + 11 cells) f32 operations per
+// ray-step with the deposit (chip_smoke.py's RHS_OPS, RK3_OPS and
+// DEPOSIT_CELL_OPS), 462 at the launch state's 2.0 covered cells, 0.69 us a
+// step at 1e5 rays at 67 TFLOP/s; the bytes, 57 per ray per launch, are far
+// below.  The time
+// above that bound is latency: a tile's chain of dependent shared-memory
+// reads, divisions and barriers, and the grid-wide wait for the flux.
+// What the design does about it: no per-stage device-memory traffic for
+// on-chip tiles, no per-stage recomputation of the frozen terms, the wait
+// overlapped with the next stage's deposit, the reduce spread over blocks
+// without tiles where the card has room, and narrow tiles walked by several
+// warps per cell.
 //
 // K6/K7: the same kernel, instantiated with kStream = true.  Replaces
 // msgwam_tpu/ops/step_pallas_stream.py:_kernel (entry point
-// _streamkernel_call; K7 is its n_members > 1 form).  On the TPU, K6 was K5
-// for any ray count, streaming the state through fast memory; here K5
-// already takes any count, so what kStream adds is:
+// _streamkernel_call; K7 is its n_members > 1 form).  What kStream adds:
 //   - the lifecycle at the end of the third stage (step_pallas_stream.py:
 //     431-465): after the RK3 update a ray is culled when it has left the
 //     domain, passed |m| > m_max or gone non-finite; with relaunch every
 //     inactive slot is refilled (dens, r, m) from the template and the mask
-//     becomes new_act | src_act.  The mask is a writable byte array updated
-//     in place; it needs no grid sync, because every phase gives each block
-//     the same tiles and each thread the same ray.  With relaunch the
-//     pre-relaunch density of the last step goes to dens_prop;
+//     becomes new_act | src_act.  The mask lives with the ray's state and is
+//     written back at the launch end (streamed tiles: at each step).  With
+//     relaunch the pre-relaunch density of the last step goes to dens_prop;
 //   - the prescribed wind (step_pallas_stream.py:234-268): at the start of
 //     each step every block overwrites its wind from the step's row of a
-//     (n_steps, rows, n_tab) table and rebuilds its shear tables (no grid
-//     sync: each block reads the same row).  The final wind is the last
-//     row used, evolved through the step's stages when prognostic;
+//     (n_steps, rows, n_tab) table and rebuilds its shear tables.  The final
+//     wind is the last row used, evolved through the step's stages when
+//     prognostic;
 //   - members (K7): n = n_members * n_per rays, member e at [e n_per,
 //     (e+1) n_per), each padded to whole 256-ray tiles by masking.  Block b
-//     serves member b / bpm only (bpm blocks per member, all members the
-//     same count), walks that member's tiles from b % bpm in steps of bpm,
-//     and holds that member's wind and tables; its flux partial is summed,
-//     in block order, with the other bpm - 1 blocks of its member only.
-//     This rule fixes the order of every member's sums; with one member it
-//     is K5's.
+//     serves member b / bpm only (bpm blocks per member), holds that
+//     member's wind and tables, and takes part in that member's flux
+//     protocol only (its own counters and buffers).  With one member it is
+//     K5's rule.
 // The kStream = false instantiation is K5.
 //
 // Occupancy: both instantiations are bounded to 64 registers, four
-// 256-thread blocks per SM.  Left to itself ptxas gives K5 100 registers
-// (two blocks per SM) once the template exists; at the bound neither
-// spills, and on an H100 (700 W) K5 takes 16% less device time per step
-// at 1e6 rays than at its earlier 80 registers with spills and three
-// blocks per SM, and 1-1.5% more at 1e5.
+// 256-thread blocks per SM (kBlocksPerSm), which the shared-memory budget
+// above assumes.
 #include <algorithm>
 #include <climits>
 
-#include <cooperative_groups.h>
-
 #include "ray_physics.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace msgwam {
 
-constexpr int kResidentPad = 256;   // c_pad of the resident kernel, at most
+constexpr int kBlocksPerSm = 4;
+constexpr int kInvFields = 8;       // RayInv's floats
 
 struct ResidentArgs {
   float g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv;
@@ -94,12 +117,19 @@ struct ResidentArgs {
   bool online, prognostic, faithful;
   RayFields f;                       // f.dens, f.r, f.m alias dens, r, m
   float *dens, *r, *m;               // the state, updated in place
-  float *qd, *qr, *qm;               // RK3 registers
+  float *qd, *qr, *qm;               // RK3 registers of streamed tiles
   float *r_prev, *m_prev, *dens_prop;   // offline mode
   float* uv;                         // (2, n_tab) wind: in, and out at the end
   const float *rhobar, *pg, *inv_rho;   // (n_tab,), (2, n_tab), (n_tab,)
-  float* flux;                       // (members, 2, n_tab - 1) scratch
-  double* partials;                  // (gridDim.x, 2, n_tab - 1) scratch
+  float* flux;                       // (2, members, 2, n_tab - 1) scratch
+  double* partials;                  // (2, members, 2 (n_tab - 1), n_tb) scratch
+  int* sync;                         // (members, 2, 2, 32) zeroed: per stage
+                                     // parity, arrivals and flux entries done
+  float* inv;                        // (kInvFields, n) scratch
+  int* win;                          // (tiles_per_block - kWinShared, gridDim.x)
+  int n_slots;                       // tiles per block in shared memory
+  bool inv_shared;                   // every block owns one tile: its
+                                     // invariants in shared memory
   // K6/K7 only (kStream)
   unsigned char* act;                // the mask, updated in place (= f.act)
   const float *src_dens, *src_r, *src_m;   // relaunch template, or null
@@ -109,236 +139,718 @@ struct ResidentArgs {
   float m_max, face_lo, face_hi;
   bool cull, relaunch;
   int n_members, n_per, bpm;         // members, rays and blocks per member
+  int n_tb;                          // blocks per member that own tiles; the
+                                     // others (rank >= n_tb) only reduce
 };
+
+// The block's fixed shared memory for tables of kPad entries (c_pad <=
+// kPad): the flux sums, the shear, rho and wind tables with the wind's RK3
+// registers, the deposit tile (also the reduce's staging, kStage doubles)
+// and the window scratch.
+constexpr int kWinShared = 64;      // tiles per block whose window is kept
+                                    // in shared memory (the rest: a.win)
+template <int kPad>
+struct Fixed {
+  DepositAccN<kPad> acc;
+  float du[kPad], dv[kPad], rho[kPad], u[kPad], v[kPad], qu[kPad], qv[kPad];
+  DepositTile tile;
+  WindowScratch wsc;
+  int win[kWinShared];     // each tile's window, base << 16 | width
+  double wpart[kWarps][2]; // a narrow tile's per-warp deposit sums
+};
+constexpr int kStage = sizeof(DepositTile) / sizeof(double);
+constexpr int kStageMax = kInvFields * kThreads / 2;   // the one-tile dyn area
+
+static_assert(sizeof(Fixed<128>) == 44 * 128 + 6656 &&
+                  sizeof(Fixed<256>) == 44 * 256 + 6656,
+              "ops/step_cuda.py:resident_plan assumes 44 kPad + 6656 bytes");
+
+constexpr int kWideCells = 32;      // walk_wide past this tile width
+
+// The deposit walk of a wide tile (its touched cells [cmin, cmax) more than
+// kWideCells): each warp sums its own 32 rays, lane l for cell wmin + l of
+// the warp's cells (32 more per pass), adding the rays in order; then the
+// warps add their cell sums to the block's sums one after the other, warp 0
+// first.  A lane tests 32 rays per pass and waits at 8 barriers, whatever
+// the tile's width; deposit_walk's gather has a lane test about width rays
+// and no barrier, so it takes the tiles up to kWideCells cells.  Ends with a
+// block barrier.
+
+template <int kPad>
+__device__ __forceinline__ void walk_wide(Fixed<kPad>& S, float g0, float dz) {
+  const DepositTile& t = S.tile;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int passes = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w)
+    if (t.wmax[w] > t.wmin[w]) passes = max(passes, (t.wmax[w] - t.wmin[w] + 31) / 32);
+  const bool live = t.wmax[wid] > t.wmin[wid];
+  for (int p = 0; p < passes; ++p) {
+    const int c = live ? t.wmin[wid] + 32 * p + lane : 0;
+    const bool mine = live && c < t.wmax[wid];
+    double s0 = 0.0, s1 = 0.0;
+    if (mine) {
+      const float cf = static_cast<float>(c);
+      const float face_lo = g0 + cf * dz;
+      const float face_hi = g0 + (cf + 1.0f) * dz;
+      for (int k = 0; k < 32; ++k) {
+        const int i = wid * 32 + k;
+        if (t.nlow[i] <= c && c < t.nup[i]) {
+          const float ov = fabsf(fminf(face_hi, t.hi[i]) - fmaxf(face_lo, t.lo[i]));
+          s0 += static_cast<double>(ov * t.v0[i]);
+          s1 += static_cast<double>(ov * t.v1[i]);
+        }
+      }
+    }
+    for (int w = 0; w < kWarps; ++w) {
+      if (wid == w && mine) {
+        S.acc.v[0][c] += s0;
+        S.acc.v[1][c] += s1;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The deposit walk of a staged tile whose touched cells [cmin, cmax) number
+// at most kWarps: kw = kWarps / P warps per cell (P the width rounded up to
+// a power of two), each lane adding every (32 kw)-th ray in order, a fixed
+// butterfly per warp, and the warp sums to wpart; after the caller's
+// barrier, walk_finish adds each cell's kw warp sums in warp order to the
+// block's sums.  Wider tiles take deposit_walk or walk_wide.  Returns P
+// (0: nothing to finish).
+template <int kPad>
+__device__ __forceinline__ int walk(Fixed<kPad>& S, float g0, float dz,
+                                   int& cmin) {
+  const DepositTile& t = S.tile;
+  int cmax = INT_MIN;
+  cmin = INT_MAX;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    cmin = min(cmin, t.wmin[w]);
+    cmax = max(cmax, t.wmax[w]);
+  }
+  if (cmax <= cmin) return 0;            // block-uniform: no live ray
+  const int width = cmax - cmin;
+  if (width > kWideCells) {
+    walk_wide(S, g0, dz);
+    return 0;
+  }
+  if (width > kWarps) {
+    deposit_walk(t, S.acc, g0, dz);
+    return 0;
+  }
+  int P = 1;
+  while (P < width) P <<= 1;
+  const int kw = kWarps / P;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = cmin + wid / kw;
+  double s0 = 0.0, s1 = 0.0;
+  if (c < cmax) {
+    const float cf = static_cast<float>(c);
+    const float face_lo = g0 + cf * dz;
+    const float face_hi = g0 + (cf + 1.0f) * dz;
+    for (int i = (wid % kw) * 32 + lane; i < kThreads; i += kw * 32) {
+      if (t.nlow[i] <= c && c < t.nup[i]) {
+        const float ov = fabsf(fminf(face_hi, t.hi[i]) - fmaxf(face_lo, t.lo[i]));
+        s0 += static_cast<double>(ov * t.v0[i]);
+        s1 += static_cast<double>(ov * t.v1[i]);
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if (lane == 0) {
+    S.wpart[wid][0] = s0;
+    S.wpart[wid][1] = s1;
+  }
+  return P;
+}
+
+template <int kPad>
+__device__ __forceinline__ void walk_finish(Fixed<kPad>& S, int P, int cmin,
+                                            int n_flux) {
+  if (threadIdx.x >= P) return;
+  const int c = cmin + threadIdx.x;
+  if (c >= n_flux) return;
+  const int kw = kWarps / P;
+  double s0 = 0.0, s1 = 0.0;
+  for (int h = 0; h < kw; ++h) {
+    s0 += S.wpart[threadIdx.x * kw + h][0];
+    s1 += S.wpart[threadIdx.x * kw + h][1];
+  }
+  S.acc.v[0][c] += s0;
+  S.acc.v[1][c] += s1;
+}
+
+__host__ __device__ constexpr int slot_floats(bool online) {
+  return online ? 6 : 8;
+}
+
+// Dynamic shared memory of one on-chip tile past the first: dens, r, m,
+// qd, qr, qm (and r_prev, m_prev offline) and the mask byte of each ray.
+__host__ __device__ constexpr int slot_bytes(bool online) {
+  return kThreads * (4 * slot_floats(online) + 1);
+}
+
+// The evolving state of one ray.
+struct RayMut {
+  float dens = 0.0f, r = 0.0f, m = 0.0f, qd = 0.0f, qr = 0.0f, qm = 0.0f;
+  float rp = 0.0f, mp = 0.0f;       // offline: r, m before the step
+  bool act = false;
+};
+
+// Slot s of the dynamic shared memory (n_slots of them).
+__device__ __forceinline__ RayMut get_slot(const float* dyn, int n_slots,
+                                           int s, bool online) {
+  const int nf = slot_floats(online);
+  const float* p = dyn + s * nf * kThreads + threadIdx.x;
+  RayMut y;
+  y.dens = p[0];
+  y.r = p[kThreads];
+  y.m = p[2 * kThreads];
+  y.qd = p[3 * kThreads];
+  y.qr = p[4 * kThreads];
+  y.qm = p[5 * kThreads];
+  if (!online) {
+    y.rp = p[6 * kThreads];
+    y.mp = p[7 * kThreads];
+  }
+  const unsigned char* act =
+      reinterpret_cast<const unsigned char*>(dyn + n_slots * nf * kThreads);
+  y.act = act[s * kThreads + threadIdx.x] != 0;
+  return y;
+}
+
+__device__ __forceinline__ void put_slot(float* dyn, int n_slots, int s,
+                                         bool online, const RayMut& y) {
+  const int nf = slot_floats(online);
+  float* p = dyn + s * nf * kThreads + threadIdx.x;
+  p[0] = y.dens;
+  p[kThreads] = y.r;
+  p[2 * kThreads] = y.m;
+  p[3 * kThreads] = y.qd;
+  p[4 * kThreads] = y.qr;
+  p[5 * kThreads] = y.qm;
+  if (!online) {
+    p[6 * kThreads] = y.rp;
+    p[7 * kThreads] = y.mp;
+  }
+  unsigned char* act = reinterpret_cast<unsigned char*>(dyn + n_slots * nf * kThreads);
+  act[s * kThreads + threadIdx.x] = y.act ? 1 : 0;
+}
+
+// A ray's invariants at p, field f at p[f stride].
+__device__ __forceinline__ void put_inv(float* p, size_t stride, const RayInv& v) {
+  p[0] = v.hdr;
+  p[stride] = v.k;
+  p[2 * stride] = v.l;
+  p[3 * stride] = v.kh2;
+  p[4 * stride] = v.bk;
+  p[5 * stride] = v.ff2;
+  p[6 * stride] = v.pv;
+  p[7 * stride] = v.pvol;
+}
+
+__device__ __forceinline__ RayInv get_inv(const float* p, size_t stride) {
+  RayInv v;
+  v.hdr = p[0];
+  v.k = p[stride];
+  v.l = p[2 * stride];
+  v.kh2 = p[3 * stride];
+  v.bk = p[4 * stride];
+  v.ff2 = p[5 * stride];
+  v.pv = p[6 * stride];
+  v.pvol = p[7 * stride];
+  return v;
+}
 
 // The shear tables du/dz, dv/dz on the interior faces from the block's
 // wind, zero-padded to c_pad.
+template <int kPad>
 __device__ __forceinline__ void shear_tables(const ResidentArgs& a,
-                                             const Geometry& g,
-                                             const float* s_u,
-                                             const float* s_v, float* s_du,
-                                             float* s_dv) {
+                                             const Geometry& g, Fixed<kPad>& S) {
   for (int c = threadIdx.x; c < a.c_pad; c += kThreads) {
-    s_du[c] = c < g.n_flux ? (s_u[c + 1] - s_u[c]) / g.dz : 0.0f;
-    s_dv[c] = c < g.n_flux ? (s_v[c + 1] - s_v[c]) / g.dz : 0.0f;
+    S.du[c] = c < g.n_flux ? (S.u[c + 1] - S.u[c]) / g.dz : 0.0f;
+    S.dv[c] = c < g.n_flux ? (S.v[c + 1] - S.v[c]) / g.dz : 0.0f;
   }
 }
 
 // The lifecycle of one ray after the third stage (kStream): the cull, then
-// the relaunch from the template.  dn, rn, mn are the ray's new dens, r, m.
+// the relaunch from the template; y holds the ray's new dens, r, m.
 __device__ __forceinline__ void lifecycle(const ResidentArgs& a, int i,
-                                          bool act, float dr, float dn,
-                                          float rn, float mn, bool last_step) {
-  const bool out = (rn - 0.5f * dr >= a.face_hi) || (rn + 0.5f * dr <= a.face_lo);
-  const bool crit = fabsf(mn) > a.m_max;
-  const bool fin = isfinite(dn) && isfinite(rn) && isfinite(mn);
-  bool na = act && !out && !crit && fin;
+                                          float hdr, RayMut& y,
+                                          bool last_step) {
+  const bool out = (y.r - hdr >= a.face_hi) || (y.r + hdr <= a.face_lo);
+  const bool crit = fabsf(y.m) > a.m_max;
+  const bool fin = isfinite(y.dens) && isfinite(y.r) && isfinite(y.m);
+  bool na = y.act && !out && !crit && fin;
   if (a.relaunch) {
-    if (last_step) a.dens_prop[i] = dn;   // propagated, before the refill
+    if (last_step) a.dens_prop[i] = y.dens;   // propagated, before the refill
     if (!na) {
-      a.dens[i] = a.src_dens[i];
-      a.r[i] = a.src_r[i];
-      a.m[i] = a.src_m[i];
+      y.dens = a.src_dens[i];
+      y.r = a.src_r[i];
+      y.m = a.src_m[i];
     }
     na = na || a.src_act[i] != 0;
   }
-  a.act[i] = na ? 1 : 0;
+  y.act = na;
 }
 
-template <bool kStream>
-__global__ void __launch_bounds__(kThreads, 4)
-step_resident_kernel(const ResidentArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ DepositTile tile;
-  __shared__ DepositAccN<kResidentPad> acc;
-  __shared__ WindowScratch wsc;
-  __shared__ double s_red[kThreads];
-  __shared__ float s_du[kResidentPad], s_dv[kResidentPad], s_rho[kResidentPad];
-  __shared__ float s_u[kResidentPad], s_v[kResidentPad];
-  __shared__ float s_qu[kResidentPad], s_qv[kResidentPad];
+// Thread 0 waits until *c >= target, polling every kPollNs at most (the
+// pause keeps hundreds of polling blocks from crowding out the counters'
+// updates in L2); then the block goes on.
+constexpr int kPollNs = 64;
+constexpr int kCountStride = 32;    // ints between counters: one 128-byte line each
 
+// A device-scope acquire-release fence: with the block barrier before it,
+// it orders every write of the block before thread 0's next counter update
+// (release); after a counter read, every later read of the block after it
+// (acquire).  Lighter than __threadfence()'s sequentially consistent fence.
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_count(const int* c, int target) {
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<const volatile int*>(c) < target) __nanosleep(kPollNs);
+    fence_acq_rel();
+  }
+  __syncthreads();
+}
+
+// Adds v to the counter after every write of the block (release).
+__device__ __forceinline__ void count_up(int* c, int v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_acq_rel();
+    atomicAdd(c, v);
+  }
+}
+
+// The flux protocol of stage s, for the block's member: nt blocks own
+// tiles (ranks 0 .. nt - 1), na >= nt blocks in all.  After a tile block's
+// deposit of stage s its sums go to partials[s % 2] and the member's arrival
+// count goes up (publish).  Entry e of the flux (var, cell), e < nv, is
+// summed by the block of rank nt + e % (na - nt) when there are blocks
+// without tiles, else by rank na - 1 - e % na (the last ranks own one tile
+// fewer): once every tile block has arrived it adds the nt partials of the
+// entry (staged in shared memory, each lane adding every 32nd in rank
+// order, then a fixed butterfly of the 32 lane sums) into flux[s % 2] and
+// counts it done (reduce).  A block that needs the flux waits until all nv
+// entries of stage s are done (wait_flux).  The order of every sum depends
+// only on nt.  The buffers and the counters alternate between even and odd
+// stages: a block publishes stage s + 2 only after stage s's flux is done,
+// so the count of stage s's parity reaches (s / 2 + 1) nt only when every
+// stage-s partial is in; and stage s + 2's flux is summed only after every
+// tile block has published stage s + 2, i.e. has read stage s's flux.
+struct FluxSync {
+  const ResidentArgs& a;
+  int member, rank, nt, na, nv;
+
+  // arrivals (count(s)) and entries done (count(s) + kCountStride) of the
+  // stages of s's parity
+  __device__ int* count(int s) const {
+    return a.sync + (4 * member + 2 * (s & 1)) * kCountStride;
+  }
+  __device__ double* part(int s) const {
+    return a.partials +
+           ((static_cast<size_t>(s & 1) * a.n_members + member) * nt) * nv;
+  }
+  __device__ float* flux(int s) const {
+    return a.flux + (static_cast<size_t>(s & 1) * a.n_members + member) * nv;
+  }
+
+  // partials[s % 2] is (members, nv, nt): each entry's partials side by side
+  template <class Acc>
+  __device__ void publish(Acc& acc, int s) const {
+    double* p = part(s) + rank;
+    const int n_flux = nv / 2;
+    for (int c = threadIdx.x; c < n_flux; c += kThreads) {
+      p[static_cast<size_t>(c) * nt] = acc.v[0][c];
+      p[static_cast<size_t>(n_flux + c) * nt] = acc.v[1][c];
+      acc.v[0][c] = acc.v[1][c] = 0.0;
+    }
+    count_up(count(s), 1);
+  }
+
+  // stage: shared scratch of n_stage doubles, n_stage <= kStageMax
+  __device__ void reduce(double* stage, int n_stage, int s) const {
+    const int stride = na > nt ? na - nt : na;
+    const int e0 = na > nt ? rank - nt : na - 1 - rank;
+    if (e0 < 0 || e0 >= nv) return;
+    wait_count(count(s), (s / 2 + 1) * nt);
+    const double* p = part(s);
+    float* fl = flux(s);
+    const int n_mine = (nv - e0 + stride - 1) / stride;
+    const int per = max(1, min(n_stage / nt, n_mine));
+    const int lane = threadIdx.x & 31;
+    constexpr int kLoads = (kStageMax + kThreads - 1) / kThreads;
+    for (int q0 = 0; q0 < n_mine; q0 += per) {
+      const int qn = min(per, n_mine - q0);
+      const int total = qn * nt;
+      double val[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int x = threadIdx.x + u * kThreads;
+        val[u] = x < total ? __ldcg(p + static_cast<size_t>(e0 + (q0 + x / nt) * stride) * nt +
+                                    x % nt)
+                           : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int x = threadIdx.x + u * kThreads;
+        if (x < total) stage[x] = val[u];
+      }
+      __syncthreads();
+      for (int q = threadIdx.x >> 5; q < qn; q += kWarps) {
+        double sum = 0.0;
+        for (int b = lane; b < nt; b += 32) sum += stage[q * nt + b];
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) fl[e0 + (q0 + q) * stride] = static_cast<float>(sum);
+      }
+      __syncthreads();
+    }
+    count_up(count(s) + kCountStride, n_mine);
+  }
+
+  __device__ void wait_flux(int s) const {
+    wait_count(count(s) + kCountStride, (s / 2 + 1) * nv);
+  }
+};
+
+template <bool kStream, int kPad>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+step_resident_kernel(const ResidentArgs a) {
+  __shared__ Fixed<kPad> S;
+  extern __shared__ __align__(16) float dyn[];   // the slots, or the one
+                                                 // tile's invariants
   const Geometry g(a.g0c, a.dz, a.g0f, a.n_tab);
   const int n_cell = a.n_tab;
   const int n_flux = g.n_flux;
-  // the block's member, its rank among the member's blocks, and the member's
-  // rays (K5: one member of all n rays served by every block; written as
-  // blockIdx.x, gridDim.x and a.n there, so that K5's code is as before)
+  // the block's member, its rank among the member's blocks, and the
+  // member's blocks (K5: one member served by every block)
   const int member = kStream ? blockIdx.x / a.bpm : 0;
-#define RANK (kStream ? blockIdx.x % a.bpm : blockIdx.x)
-#define N_RANKS (kStream ? a.bpm : gridDim.x)
+  const int rank = kStream ? blockIdx.x % a.bpm : blockIdx.x;
+  const int n_ranks = kStream ? a.bpm : gridDim.x;
+  const int n_tb = a.n_tb;
   const int n_mem = kStream ? a.n_per : a.n;
   const int off = kStream ? member * a.n_per : 0;
   float* uv = a.uv + 2 * n_cell * member;
-  const float* flux = a.flux + 2 * n_flux * member;
   const bool prescribed = kStream && a.wind != nullptr;
+  const bool life = kStream && a.cull;
+  const bool online = a.online;
+  const bool prog = a.prognostic;
+  const int n_tiles = (n_mem + kThreads - 1) / kThreads;
+  const FluxSync fs{a, member, rank, n_tb, n_ranks, 2 * n_flux};
+  const int n_stages = 3 * a.n_steps;
+  if (rank >= n_tb) {           // a block without tiles: it only reduces
+    // (its dynamic shared memory is the one-tile invariants' area, unused)
+    for (int s = 0; s < n_stages; ++s)
+      fs.reduce(reinterpret_cast<double*>(dyn), kStageMax, s);
+    return;
+  }
   for (int c = threadIdx.x; c < a.c_pad; c += kThreads) {
-    s_u[c] = c < n_cell ? uv[c] : 0.0f;
-    s_v[c] = c < n_cell ? uv[n_cell + c] : 0.0f;
-    s_rho[c] = c < n_cell ? a.rhobar[c] : 0.0f;
+    S.u[c] = c < n_cell ? uv[c] : 0.0f;
+    S.v[c] = c < n_cell ? uv[n_cell + c] : 0.0f;
+    S.rho[c] = c < n_cell ? a.rhobar[c] : 0.0f;
+    S.acc.v[0][c] = S.acc.v[1][c] = 0.0;
+  }
+
+  // --- the launch start: state on chip, invariants once ------------------
+  RayMut y0;
+  for (int j = 0, t = rank; t < n_tiles; ++j, t += n_tb) {
+    const int il = t * kThreads + threadIdx.x;
+    const int i = off + il;
+    RayMut y;
+    if (il < n_mem) {
+      const Ray ray = load_ray(a.f, i);
+      const RayInv v = ray_invariants(ray, a.bvf);
+      y.dens = ray.dens;
+      y.r = ray.r;
+      y.m = ray.m;
+      y.act = ray.act;
+      if (a.inv_shared)
+        put_inv(dyn + threadIdx.x, kThreads, v);
+      else
+        put_inv(a.inv + i, a.n, v);
+    }
+    if (j == 0)
+      y0 = y;
+    else if (j <= a.n_slots)
+      put_slot(dyn, a.n_slots, j - 1, online, y);
   }
   __syncthreads();
-  shear_tables(a, g, s_u, s_v, s_du, s_dv);
-  __syncthreads();
 
-  const int n_tiles = (n_mem + kThreads - 1) / kThreads;
-  for (int step = 0; step < a.n_steps; ++step) {
-    if (prescribed) {       // the step's row of the wind table
+  // The state of tile j of the block (ray i) and its invariants.
+  auto load = [&](int j, int i, bool in, bool with_q) {
+    RayMut y;
+    if (j == 0) {
+      y = y0;
+    } else if (j <= a.n_slots) {
+      y = get_slot(dyn, a.n_slots, j - 1, online);
+    } else if (in) {
+      y.dens = a.dens[i];
+      y.r = a.r[i];
+      y.m = a.m[i];
+      if (with_q) {
+        y.qd = a.qd[i];
+        y.qr = a.qr[i];
+        y.qm = a.qm[i];
+        if (!online) {
+          y.rp = a.r_prev[i];
+          y.mp = a.m_prev[i];
+        }
+      }
+      y.act = a.f.act[i] != 0;
+    }
+    return y;
+  };
+  auto invariants = [&](int i, bool in) {
+    RayInv v;
+    if (a.inv_shared)
+      v = get_inv(dyn + threadIdx.x, kThreads);
+    else if (in)
+      v = get_inv(a.inv + i, a.n);
+    return v;
+  };
+
+  // A: the windows of every tile from the state, and with a prognostic
+  // wind the deposit of the state into the block's sums (independent of the
+  // wind, hprop off), published as stage s's partial.  Two block barriers
+  // per tile.
+  auto deposit_pass = [&](int s) {
+    for (int j = 0, t = rank; t < n_tiles; ++j, t += n_tb) {
+      const int il = t * kThreads + threadIdx.x;
+      const bool in = il < n_mem;
+      const int i = off + il;
+      const RayMut y = load(j, i, in, false);
+      const RayInv v = invariants(i, in);
+      RayTerms rt;
+      int lo = kEmptyLo, hi = kEmptyHi;
+      if (in) {
+        rt = stage_terms(v, y.dens, y.r, y.m, y.act, g, a.dt);
+        window_bounds(rt, y.act, lo, hi);
+      }
+      if (prog)
+        deposit_stage(S.tile, rt.live, rt.nlow, rt.nup, rt.r_lo, rt.r_up,
+                      rt.fvk, rt.fvl);
+      window_stage(S.wsc, lo, hi);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int base, width;
+        window_read(S.wsc, a.c_pad, a.w1, a.w2, base, width);
+        const int w = base << 16 | width;
+        if (j < kWinShared)
+          S.win[j] = w;
+        else
+          a.win[static_cast<size_t>(j - kWinShared) * gridDim.x + blockIdx.x] = w;
+      }
+      int cmin = 0, P = 0;
+      if (prog) P = walk(S, g.g0c, g.dz, cmin);
+      __syncthreads();
+      if (P) walk_finish(S, P, cmin, n_flux);
+    }
+    if (prog) {
+      __syncthreads();
+      fs.publish(S.acc, s);
+    }
+  };
+
+  // B: stage st of step `step` on every tile with the block's wind: the
+  // lookups through the tile's window, the tendencies, the RK3 update of
+  // dens, r, m and q in place; after the third stage the lifecycle (K6/K7)
+  // or the offline saturation.
+  auto update_pass = [&](int step, int st) {
+    const bool first = st == 0;
+    const bool last_step = step == a.n_steps - 1;
+    const float cc = st == 1 ? 5.0f / 9.0f : (st == 2 ? 153.0f / 128.0f : 0.0f);
+    const float bc = st == 1 ? 15.0f / 16.0f : (st == 2 ? 8.0f / 15.0f : 0.0f);
+    for (int j = 0, t = rank; t < n_tiles; ++j, t += n_tb) {
+      const int il = t * kThreads + threadIdx.x;
+      const bool in = il < n_mem;
+      const int i = off + il;
+      RayMut y = load(j, i, in, !first);
+      const RayInv v = invariants(i, in);
+      const int w = j < kWinShared
+                        ? S.win[j]
+                        : a.win[static_cast<size_t>(j - kWinShared) * gridDim.x + blockIdx.x];
+      const int base = w >> 16, width = w & 0xffff;
+      if (!online && first) {       // pre-step state for the FD rates
+        y.rp = y.r;
+        y.mp = y.m;
+      }
+      if (in) {
+        const RayTerms rt = stage_terms(v, y.dens, y.r, y.m, y.act, g, a.dt);
+        const float du = interp_window(S.du, n_flux, base, width, rt.qf);
+        const float dv = interp_window(S.dv, n_flux, base, width, rt.qf);
+        const float rho =
+            online ? interp_window(S.rho, a.n_tab, base, width, rt.qr) : 0.0f;
+        const Tendencies td =
+            stage_tendencies(v, y.dens, y.m, y.act, rt, du, dv, rho, a.dt,
+                             a.bvf, a.kappa, a.f0, online, a.faithful);
+        y.dens = rk3_stage(td.dens, y.dens, &y.qd, a.dt, cc, bc, first);
+        y.r = rk3_stage(td.r, y.r, &y.qr, a.dt, cc, bc, first);
+        y.m = rk3_stage(td.m, y.m, &y.qm, a.dt, cc, bc, first);
+        if (life && st == 2) lifecycle(a, i, v.hdr, y, last_step);
+      }
+      if (!online && st == 2) {     // the offline saturation across the step
+        float qr = 0.0f, m_fin = 0.0f;
+        int lo = kEmptyLo, hi = kEmptyHi;
+        if (in) {
+          const float r_rate = (y.r - y.rp) / a.rdiv;
+          const float m_rate = (y.m - y.mp) / a.dt;
+          const float r_fin = y.rp + r_rate * a.dt;
+          m_fin = y.mp + m_rate * a.dt;
+          qr = (fminf(fmaxf(r_fin, g.g0c), g.hi_c) - g.g0c) / g.dz;
+          if (y.act) {
+            lo = static_cast<int>(qr) - 1;
+            hi = static_cast<int>(qr) + 2;
+          }
+        }
+        int sbase, swidth;
+        tile_window(S.wsc, lo, hi, a.c_pad, a.w1, 0, sbase, swidth);
+        if (in) {
+          const float rho = interp_window(S.rho, a.n_tab, sbase, swidth, qr);
+          const float m_p = y.mp;
+          const float omh2 = (v.bk + a.f0 * a.f0 * m_p * m_p) *
+                             (1.0f / (v.kh2 + m_p * m_p));
+          const float cap = a.kappa * a.kappa * 0.5f * rho * omh2 *
+                            rsqrtf(omh2) * a.bvf * a.bvf /
+                            (m_fin * m_fin * (omh2 - a.f0 * a.f0));
+          const float cap_applied = a.faithful ? cap : cap / v.pvol;
+          const bool exceed = (cap < y.dens * v.pvol) && y.act;
+          if (last_step) a.dens_prop[i] = y.dens;   // propagated, before the cap
+          y.dens = exceed ? cap_applied : y.dens;
+        }
+        __syncthreads();
+      }
+      if (j == 0) {
+        y0 = y;
+      } else if (j <= a.n_slots) {
+        put_slot(dyn, a.n_slots, j - 1, online, y);
+      } else if (in) {
+        a.dens[i] = y.dens;
+        a.r[i] = y.r;
+        a.m[i] = y.m;
+        a.qd[i] = y.qd;
+        a.qr[i] = y.qr;
+        a.qm[i] = y.qm;
+        if (!online && first) {
+          a.r_prev[i] = y.rp;
+          a.m_prev[i] = y.mp;
+        }
+        if (life && st == 2) a.act[i] = y.act ? 1 : 0;
+      }
+    }
+  };
+
+  // The wind's stage update from stage s's flux, in every block: the flux
+  // divergence (boundary padding by copy), Coriolis f0, the pressure
+  // gradient times the precomputed 1/rho, and the q/y stage update of u and
+  // v (step_pallas.py:384-402).
+  auto wind_update = [&](int s) {
+    fs.wait_flux(s);
+    const float* fl = fs.flux(s);
+    const int st = s % 3;
+    const bool first = st == 0;
+    const float cc = st == 1 ? 5.0f / 9.0f : (st == 2 ? 153.0f / 128.0f : 0.0f);
+    const float bc = st == 1 ? 15.0f / 16.0f : (st == 2 ? 8.0f / 15.0f : 0.0f);
+    for (int c = threadIdx.x; c < n_cell; c += kThreads) {
+      const int up = min(c, n_flux - 1);
+      const int dn = max(c - 1, 0);
+      const float gx = (__ldcg(fl + up) - __ldcg(fl + dn)) / a.dzf;
+      const float gy = (__ldcg(fl + n_flux + up) - __ldcg(fl + n_flux + dn)) / a.dzf;
+      const float u = S.u[c], v = S.v[c];
+      const float irho = __ldg(a.inv_rho + c);
+      const float du = a.f0 * v - (__ldg(a.pg + c) + gx) * irho;
+      const float dv = -a.f0 * u - (__ldg(a.pg + n_cell + c) + gy) * irho;
+      S.u[c] = rk3_stage(du, u, S.qu + c, a.dt, cc, bc, first);
+      S.v[c] = rk3_stage(dv, v, S.qv + c, a.dt, cc, bc, first);
+    }
+  };
+
+  // The stages, software-pipelined: stage s's lookups need the wind after
+  // stage s - 1's flux, but its deposit needs only the state, so each block
+  // deposits stage s + 1 (A) before it waits for stage s's flux, and the
+  // reduce of stage s runs while the blocks deposit.  Per stage s:
+  // [wind from s - 1's flux] B(s) [reduce s] A(s + 1).
+  deposit_pass(0);
+  for (int s = 0; s < n_stages; ++s) {
+    const int step = s / 3, st = s % 3;
+    if (s > 0 && prog) wind_update(s - 1);
+    if (st == 0 && prescribed) {    // the step's row of the wind table
       const int row = a.wind_rows == 2 ? 0 : 2 * member;
       const float* w = a.wind + (static_cast<size_t>(step) * a.wind_rows + row) * n_cell;
       __syncthreads();
       for (int c = threadIdx.x; c < n_cell; c += kThreads) {
-        s_u[c] = w[c];
-        s_v[c] = w[n_cell + c];
+        S.u[c] = w[c];
+        S.v[c] = w[n_cell + c];
       }
+    }
+    if (s == 0 || prog || (st == 0 && prescribed)) {
       __syncthreads();
-      shear_tables(a, g, s_u, s_v, s_du, s_dv);
+      shear_tables(a, g, S);
       __syncthreads();
     }
-    for (int st = 0; st < 3; ++st) {
-      const bool first = st == 0;
-      const float cc = st == 1 ? 5.0f / 9.0f : (st == 2 ? 153.0f / 128.0f : 0.0f);
-      const float bc = st == 1 ? 15.0f / 16.0f : (st == 2 ? 8.0f / 15.0f : 0.0f);
+    update_pass(step, st);
+    if (prog) fs.reduce(reinterpret_cast<double*>(&S.tile), kStage, s);
+    if (s + 1 < n_stages) deposit_pass(s + 1);
+  }
+  if (prog) {
+    wind_update(n_stages - 1);
+    __syncthreads();
+  }
 
-      // --- 1. tiles: windowed RHS, stage update in place, deposit --------
-      acc.zero(n_flux);
-      __syncthreads();
-      for (int t = RANK; t < n_tiles; t += N_RANKS) {
-        const int il = t * kThreads + threadIdx.x;
-        const bool in = il < n_mem;
-        const int i = kStream ? off + il : il;
-        Ray y;
-        RayTerms rt;
-        int lo = kEmptyLo, hi = kEmptyHi;
-        if (in) {
-          y = load_ray(a.f, i);
-          if (!a.online && first) {     // pre-step state for the FD rates
-            a.r_prev[i] = y.r;
-            a.m_prev[i] = y.m;
-          }
-          rt = ray_terms(y, g, a.dt, a.bvf);
-          window_bounds(rt, y.act, lo, hi);
-        }
-        int base, width;
-        tile_window(wsc, lo, hi, a.c_pad, a.w1, a.w2, base, width);
-        if (in) {
-          const float du = interp_window(s_du, n_flux, base, width, rt.qf);
-          const float dv = interp_window(s_dv, n_flux, base, width, rt.qf);
-          const float rho =
-              a.online ? interp_window(s_rho, a.n_tab, base, width, rt.qr) : 0.0f;
-          const Tendencies td =
-              ray_tendencies(y, rt, du, dv, rho, a.dt, a.bvf, a.kappa, a.f0,
-                             a.online, a.faithful);
-          // each field's q and y are stored before the next field's stage
-          const float dn = rk3_stage(td.dens, y.dens, a.qd + i, a.dt, cc, bc, first);
-          a.dens[i] = dn;
-          const float rn = rk3_stage(td.r, y.r, a.qr + i, a.dt, cc, bc, first);
-          a.r[i] = rn;
-          const float mn = rk3_stage(td.m, y.m, a.qm + i, a.dt, cc, bc, first);
-          a.m[i] = mn;
-          if (kStream && a.cull && st == 2)
-            lifecycle(a, i, y.act, y.dr, dn, rn, mn, step == a.n_steps - 1);
-        }
-        deposit_stage(tile, rt.live, rt.nlow, rt.nup, rt.r_lo, rt.r_up, rt.fvk,
-                      rt.fvl);
-        __syncthreads();
-        deposit_walk(tile, acc, g.g0c, g.dz);
-        __syncthreads();
-      }
-      deposit_store(acc, a.partials, n_flux);
-
-      // --- offline saturation after the third stage ----------------------
-      if (!a.online && st == 2) {
-        for (int t = RANK; t < n_tiles; t += N_RANKS) {
-          const int il = t * kThreads + threadIdx.x;
-          const bool in = il < n_mem;
-          const int i = kStream ? off + il : il;
-          float qr = 0.0f, r_p = 0.0f, m_p = 0.0f, m_fin = 0.0f, dens_n = 0.0f;
-          bool act = false;
-          int lo = kEmptyLo, hi = kEmptyHi;
-          if (in) {
-            r_p = a.r_prev[i];
-            m_p = a.m_prev[i];
-            dens_n = a.dens[i];
-            a.dens_prop[i] = dens_n;          // propagated, before the cap
-            const float r_rate = (a.r[i] - r_p) / a.rdiv;
-            const float m_rate = (a.m[i] - m_p) / a.dt;
-            const float r_fin = r_p + r_rate * a.dt;
-            m_fin = m_p + m_rate * a.dt;
-            qr = (fminf(fmaxf(r_fin, g.g0c), g.hi_c) - g.g0c) / g.dz;
-            act = a.f.act[i] != 0;
-            if (act) {
-              lo = static_cast<int>(qr) - 1;
-              hi = static_cast<int>(qr) + 2;
-            }
-          }
-          int base, width;
-          tile_window(wsc, lo, hi, a.c_pad, a.w1, 0, base, width);
-          if (in) {
-            const float rho = interp_window(s_rho, a.n_tab, base, width, qr);
-            const float k = a.f.k[i], l = a.f.l[i];
-            const float kh2 = k * k + l * l;
-            const float omh2 = (a.bvf * a.bvf * kh2 + a.f0 * a.f0 * m_p * m_p) *
-                               (1.0f / (kh2 + m_p * m_p));
-            const float cap = a.kappa * a.kappa * 0.5f * rho * omh2 *
-                              rsqrtf(omh2) * a.bvf * a.bvf /
-                              (m_fin * m_fin * (omh2 - a.f0 * a.f0));
-            const float dmm_fin = a.f.area[i] / a.f.dr[i];
-            const float pvol = a.f.dkk[i] * a.f.dll[i] * dmm_fin;
-            const float cap_applied = a.faithful ? cap : cap / pvol;
-            const bool exceed = (cap < dens_n * pvol) && act;
-            a.dens[i] = exceed ? cap_applied : dens_n;
-          }
-          __syncthreads();
-        }
-      }
-      if (!a.prognostic) continue;
-
-      // --- 2-3. fixed-order reduce of each member's block partials --------
-      grid.sync();
-      // entry w = (member, var, cell) sums the member's n_ranks partials
-      const int n_members = kStream ? a.n_members : 1;
-      for (int w = blockIdx.x; w < n_members * 2 * n_flux; w += gridDim.x) {
-        const int e = kStream ? w / (2 * n_flux) : 0;
-        const double total =
-            sum_partials(a.partials + static_cast<size_t>(e) * N_RANKS * 2 * n_flux,
-                         N_RANKS, n_flux, w - e * 2 * n_flux, s_red);
-        if (threadIdx.x == 0) a.flux[w] = static_cast<float>(total);
-      }
-      grid.sync();
-
-      // --- 5. the wind update, in every block -----------------------------
-      for (int c = threadIdx.x; c < n_cell; c += kThreads) {
-        const int up = min(c, n_flux - 1);
-        const int dn = max(c - 1, 0);
-        const float gx = (__ldcg(flux + up) - __ldcg(flux + dn)) / a.dzf;
-        const float gy =
-            (__ldcg(flux + n_flux + up) - __ldcg(flux + n_flux + dn)) / a.dzf;
-        const float u = s_u[c], v = s_v[c];
-        const float du = a.f0 * v - (a.pg[c] + gx) * a.inv_rho[c];
-        const float dv = -a.f0 * u - (a.pg[n_cell + c] + gy) * a.inv_rho[c];
-        s_u[c] = rk3_stage(du, u, s_qu + c, a.dt, cc, bc, first);
-        s_v[c] = rk3_stage(dv, v, s_qv + c, a.dt, cc, bc, first);
-      }
-      __syncthreads();
-      shear_tables(a, g, s_u, s_v, s_du, s_dv);
-      __syncthreads();
+  // --- the launch end: the on-chip state back to device memory ----------
+  for (int j = 0, t = rank; t < n_tiles && j <= a.n_slots; ++j, t += n_tb) {
+    const int il = t * kThreads + threadIdx.x;
+    const int i = off + il;
+    const RayMut y = j == 0 ? y0 : get_slot(dyn, a.n_slots, j - 1, online);
+    if (il < n_mem) {
+      a.dens[i] = y.dens;
+      a.r[i] = y.r;
+      a.m[i] = y.m;
+      if (life) a.act[i] = y.act ? 1 : 0;
     }
   }
-  if ((a.prognostic || prescribed) && RANK == 0)
+  if ((prog || prescribed) && rank == 0)
     for (int c = threadIdx.x; c < n_cell; c += kThreads) {
-      uv[c] = s_u[c];
-      uv[n_cell + c] = s_v[c];
+      uv[c] = S.u[c];
+      uv[n_cell + c] = S.v[c];
     }
-#undef RANK
-#undef N_RANKS
 }
+
+// The block plan of a launch (mirrored by ops/step_cuda.py:resident_plan).
+struct Plan {
+  int bpm, n_tb, tiles_per_block, n_slots, smem, on_chip, tiles;
+};
 
 }  // namespace msgwam
 
 namespace {
 
-cudaError_t resident_blocks_per_sm(const void* kernel, int* capacity) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+template <bool kStream, int kPad>
+const void* kernel_ptr() {
+  return reinterpret_cast<const void*>(msgwam::step_resident_kernel<kStream, kPad>);
+}
+
+template <bool kStream>
+const void* kernel_for(int c_pad) {
+  return c_pad <= 128 ? kernel_ptr<kStream, 128>() : kernel_ptr<kStream, 256>();
+}
+
+template <bool kStream>
+cudaError_t resident_plan(int n_per, int n_members, int c_pad, int n_flux,
+                          bool online, bool prognostic, msgwam::Plan* p) {
+  using namespace msgwam;
+  const void* kernel = kernel_for<kStream>(c_pad);
+  const int fixed = c_pad <= 128 ? static_cast<int>(sizeof(Fixed<128>))
+                                 : static_cast<int>(sizeof(Fixed<256>));
+  int dev = 0, sms = 0, coop = 0, per_sm_smem = 0, reserved = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -346,10 +858,37 @@ cudaError_t resident_blocks_per_sm(const void* kernel, int* capacity) {
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        msgwam::kThreads, 0);
-  *capacity = per_sm * sms;
-  return err;
+    err = cudaDeviceGetAttribute(&per_sm_smem,
+                                 cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved,
+                                 cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return err;
+  // the dynamic shared memory a block may take with kBlocksPerSm per SM
+  const int budget = per_sm_smem / kBlocksPerSm - reserved - fixed;
+  if (budget < kInvFields * kThreads * 4) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             budget);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                        budget);
+  if (err != cudaSuccess) return err;
+  const int capacity = per_sm * sms;
+  const int tiles = (n_per + kThreads - 1) / kThreads;
+  const int per_member = capacity / n_members;
+  p->tiles = tiles;
+  p->n_tb = std::max(1, std::min(tiles, per_member));
+  // blocks without tiles that only reduce the flux, where the card has room
+  p->bpm = p->n_tb + (prognostic ? std::min(2 * n_flux, std::max(0, per_member - p->n_tb))
+                                 : 0);
+  p->tiles_per_block = (tiles + p->n_tb - 1) / p->n_tb;
+  p->n_slots = std::min(p->tiles_per_block - 1, budget / slot_bytes(online));
+  p->smem = p->tiles_per_block == 1 ? kInvFields * kThreads * 4
+                                    : p->n_slots * slot_bytes(online);
+  p->on_chip = 0;
+  for (int r = 0; r < p->n_tb; ++r)
+    p->on_chip += std::min((tiles - r + p->n_tb - 1) / p->n_tb, p->n_slots + 1);
+  return cudaSuccess;
 }
 
 // The fields K5 and K6 share; returns false on arguments the kernel does
@@ -364,12 +903,13 @@ bool fill_args(msgwam::ResidentArgs& a, float g0c, float dz, float g0f,
                float* qm, float* r_prev, float* m_prev, float* dens_prop,
                float* uv, const float* rhobar, const float* pg,
                const float* inv_rho, float* flux, double* partials,
-               int n_blocks, int n_steps, int online, int prognostic,
-               int faithful) {
+               int* sync, float* inv, int* win, int n_blocks,
+               int n_steps, int online, int prognostic, int faithful) {
   using namespace msgwam;
-  if (n_tab < 3 || c_pad < n_tab || c_pad > kResidentPad || w1 < 16 ||
+  if (n_tab < 3 || c_pad < n_tab || c_pad > 256 || w1 < 16 ||
       w1 > c_pad || (w2 != 0 && (w2 <= w1 || w2 > c_pad)) || n < 1 ||
       n_blocks < 1 || n_steps < 1 ||
+      n_steps > INT_MAX / 3 / std::max(n_blocks, 2 * n_tab) ||
       (!online && (r_prev == nullptr || m_prev == nullptr ||
                    dens_prop == nullptr)))
     return false;
@@ -408,37 +948,69 @@ bool fill_args(msgwam::ResidentArgs& a, float g0c, float dz, float g0f,
   a.inv_rho = inv_rho;
   a.flux = flux;
   a.partials = partials;
+  a.sync = sync;
+  a.win = win;
+  a.n_members = 1;
+  a.inv = inv;
   return true;
 }
 
-cudaError_t launch_cooperative(const void* kernel, msgwam::ResidentArgs& a,
-                               int n_blocks, void* stream) {
+// The plan of the launch into a, after checking that the caller sized its
+// scratch for the same block count, and the cooperative launch.
+template <bool kStream>
+cudaError_t launch_planned(msgwam::ResidentArgs& a, int n_per, int n_members,
+                           int blocks_per_member, void* stream) {
+  msgwam::Plan p;
+  const cudaError_t err = resident_plan<kStream>(
+      n_per, n_members, a.c_pad, a.n_tab - 1, a.online, a.prognostic, &p);
+  if (err != cudaSuccess) return err;
+  if (p.bpm != blocks_per_member) return cudaErrorInvalidValue;
+  a.n_tb = p.n_tb;
+  a.n_slots = p.n_slots;
+  a.inv_shared = p.tiles_per_block == 1;
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(kernel, dim3(n_blocks),
-                                     dim3(msgwam::kThreads), args, 0,
-                                     static_cast<cudaStream_t>(stream));
+  return cudaLaunchCooperativeKernel(
+      kernel_for<kStream>(a.c_pad), dim3(n_members * blocks_per_member),
+      dim3(msgwam::kThreads), args, static_cast<size_t>(p.smem),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// The block count of K5 for n rays on the current device: one 256-ray tile
-// per block, at most as many blocks as the device holds resident at once
-// (a cooperative launch needs them all resident).  A function of n and the
-// device only, so the order of the flux sums is too.
-extern "C" int msgwam_step_resident_blocks(int n, int* n_blocks) {
+// The block plan of K5 (stream = 0) or K6/K7 (stream = 1) for n_members
+// members of n_per rays on the current device: out = (blocks per member,
+// of them with tiles, tiles per block at most, shared-memory slots, dynamic
+// shared bytes, tiles on chip per member, tiles per member).  A function of its arguments and the device only, so
+// the order of the flux sums is too.  With more members than resident
+// blocks the plan has one block per member and the launch is refused.
+extern "C" int msgwam_step_resident_plan(int n_per, int n_members, int c_pad,
+                                         int n_flux, int online, int prognostic,
+                                         int stream, int* out) {
   using namespace msgwam;
-  int capacity = 0;
-  const cudaError_t err = resident_blocks_per_sm(
-      reinterpret_cast<const void*>(step_resident_kernel<false>), &capacity);
+  if (n_per < 1 || n_members < 1 || c_pad < 3 || c_pad > 256 || n_flux < 2 ||
+      n_flux >= c_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  const cudaError_t err =
+      stream ? resident_plan<true>(n_per, n_members, c_pad, n_flux, online != 0,
+                                   prognostic != 0, &p)
+             : resident_plan<false>(n_per, n_members, c_pad, n_flux, online != 0,
+                                    prognostic != 0, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (n + kThreads - 1) / kThreads;
-  *n_blocks = std::max(1, std::min(n_tiles, capacity));
+  const int v[] = {p.bpm, p.n_tb, p.tiles_per_block, p.n_slots, p.smem,
+                   p.on_chip, p.tiles};
+  std::copy(v, v + 7, out);
   return 0;
 }
 
 // n_steps whole steps in one cooperative launch; dens, r, m and uv are
-// updated in place.  A refused launch (cudaErrorCooperativeLaunchTooLarge
-// and the like) comes back as its error code.
+// updated in place.  Scratch, sized from msgwam_step_resident_plan's plan:
+// flux (2, 2, n_tab - 1), partials (2, 2 (n_tab - 1), tile blocks), sync
+// (2, 2, 32) ints zeroed before the launch, inv (8, n) (unused when every
+// block owns one tile), win (tiles_per_block - 64, n_blocks) ints (unused
+// below 65 tiles per block); n_blocks must be the plan's.
+// A refused launch (cudaErrorCooperativeLaunchTooLarge and the like) comes
+// back as its error code.
 extern "C" int msgwam_step_resident(
     float g0c, float dz, float g0f, float dzf, float dt, float bvf,
     float kappa, float f0, float rdiv, int n_tab, int c_pad, int w1, int w2,
@@ -447,43 +1019,28 @@ extern "C" int msgwam_step_resident(
     const unsigned char* active, int n, float* dens, float* r, float* m,
     float* qd, float* qr, float* qm, float* r_prev, float* m_prev,
     float* dens_prop, float* uv, const float* rhobar, const float* pg,
-    const float* inv_rho, float* flux, double* partials, int n_blocks,
-    int n_steps, int online, int prognostic, int faithful, void* stream) {
+    const float* inv_rho, float* flux, double* partials, int* sync,
+    float* inv, int* win, int n_blocks, int n_steps, int online,
+    int prognostic, int faithful, void* stream) {
   using namespace msgwam;
   ResidentArgs a;
   if (!fill_args(a, g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv, n_tab, c_pad,
                  w1, w2, dr, k, l, dm, phi, dkk, dll, area, active, n, dens, r,
                  m, qd, qr, qm, r_prev, m_prev, dens_prop, uv, rhobar, pg,
-                 inv_rho, flux, partials, n_blocks, n_steps, online,
-                 prognostic, faithful))
+                 inv_rho, flux, partials, sync, inv, win, n_blocks, n_steps,
+                 online, prognostic, faithful))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_cooperative(
-      reinterpret_cast<const void*>(step_resident_kernel<false>), a, n_blocks,
-      stream));
-}
-
-// The blocks per member of K6/K7 for n_members members of n_per rays:
-// one tile per block, and all members' blocks resident at once.  With more
-// members than resident blocks this returns 1 and the launch is refused.
-extern "C" int msgwam_step_stream_blocks(int n_per, int n_members,
-                                         int* blocks_per_member) {
-  using namespace msgwam;
-  if (n_per < 1 || n_members < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int capacity = 0;
-  const cudaError_t err = resident_blocks_per_sm(
-      reinterpret_cast<const void*>(step_resident_kernel<true>), &capacity);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (n_per + kThreads - 1) / kThreads;
-  *blocks_per_member = std::max(1, std::min(n_tiles, capacity / n_members));
-  return 0;
+  return static_cast<int>(launch_planned<false>(a, n, 1, n_blocks, stream));
 }
 
 // K6 (n_members = 1) and K7: K5's launch plus the lifecycle (cull, and
 // relaunch when the template is given), the prescribed wind table and the
 // member partition.  act is the mask, updated in place; uv is
-// (n_members, 2, n_tab), flux (n_members, 2, n_tab - 1), partials
-// (n_members * blocks_per_member, 2, n_tab - 1).  With relaunch, dens_prop
-// receives the last step's density before the refill.
+// (n_members, 2, n_tab); scratch as K5's with n_blocks = n_members *
+// blocks_per_member: flux (2, n_members, 2, n_tab - 1), partials (2,
+// n_members, 2 (n_tab - 1), tile blocks per member), sync (n_members, 2, 2,
+// 32) zeroed, inv (8, n_members * n_per).  With relaunch,
+// dens_prop receives the last step's density before the refill.
 extern "C" int msgwam_step_stream(
     float g0c, float dz, float g0f, float dzf, float dt, float bvf,
     float kappa, float f0, float rdiv, int n_tab, int c_pad, int w1, int w2,
@@ -492,12 +1049,12 @@ extern "C" int msgwam_step_stream(
     unsigned char* act, int n_per, int n_members, float* dens, float* r,
     float* m, float* qd, float* qr, float* qm, float* r_prev, float* m_prev,
     float* dens_prop, float* uv, const float* rhobar, const float* pg,
-    const float* inv_rho, float* flux, double* partials,
-    int blocks_per_member, int n_steps, int online, int prognostic,
-    int faithful, int cull, float m_max, float face_lo, float face_hi,
-    const float* src_dens, const float* src_r, const float* src_m,
-    const unsigned char* src_act, const float* wind, int wind_rows,
-    void* stream) {
+    const float* inv_rho, float* flux, double* partials, int* sync,
+    float* inv, int* win, int blocks_per_member, int n_steps, int online,
+    int prognostic, int faithful, int cull, float m_max, float face_lo,
+    float face_hi, const float* src_dens, const float* src_r,
+    const float* src_m, const unsigned char* src_act, const float* wind,
+    int wind_rows, void* stream) {
   using namespace msgwam;
   const bool relaunch = src_dens != nullptr;
   if (n_members < 1 || n_per < 1 || blocks_per_member < 1 ||
@@ -513,8 +1070,8 @@ extern "C" int msgwam_step_stream(
   if (!fill_args(a, g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv, n_tab, c_pad,
                  w1, w2, dr, k, l, dm, phi, dkk, dll, area, act,
                  n_members * n_per, dens, r, m, qd, qr, qm, r_prev, m_prev,
-                 dens_prop, uv, rhobar, pg, inv_rho, flux, partials, n_blocks,
-                 n_steps, online, prognostic, faithful))
+                 dens_prop, uv, rhobar, pg, inv_rho, flux, partials, sync,
+                 inv, win, n_blocks, n_steps, online, prognostic, faithful))
     return static_cast<int>(cudaErrorInvalidValue);
   a.act = act;
   a.src_dens = src_dens;
@@ -531,7 +1088,6 @@ extern "C" int msgwam_step_stream(
   a.n_members = n_members;
   a.n_per = n_per;
   a.bpm = blocks_per_member;
-  return static_cast<int>(launch_cooperative(
-      reinterpret_cast<const void*>(step_resident_kernel<true>), a, n_blocks,
-      stream));
+  return static_cast<int>(
+      launch_planned<true>(a, n_per, n_members, blocks_per_member, stream));
 }

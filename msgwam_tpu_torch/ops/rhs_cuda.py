@@ -80,7 +80,9 @@ def resolve_champion(n_ray: int, lifecycle: bool = False,
     whatever the window's width, so the window's cost is one reduction
     per tile, and the card's own choice waits for a measurement.  The
     arguments are those of the JAX function; the streamed tile height it
-    also returns belongs to the streaming kernel K6, not ported."""
+    also returns sized the TPU's fast-memory pipeline of the streaming
+    kernel, which the port's K6 (``ops/step_cuda_stream.py``) has no use
+    for."""
     del n_ray, lifecycle, sorted_multi_launch
     return {"window_cells": WINDOW_FLOOR, "window_cells2": 0}
 

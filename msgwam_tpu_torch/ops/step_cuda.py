@@ -1,23 +1,30 @@
 """K5: whole RK3 steps of the coupled model per launch, as a hand-written
-persistent cooperative Hopper kernel.
+persistent cooperative Hopper kernel that keeps the ray state on chip.
 
 Replaces ``msgwam_tpu/ops/step_pallas.py`` (``_kernel``, entry points
 ``_megakernel_call``, ``_simulate_resident_impl`` and
 ``simulate_resident``).  The CUDA source is ``csrc/step_resident.cu``.
 :func:`simulate_resident` runs ``run.n_steps`` steps as
-``n_steps // save_every`` launches, each of ``save_every`` whole steps:
-per stage the windowed RHS of K3 with the RK3 update of dens/r/m in place,
-a grid-wide reduce of the flux, and the wind's stage update in every
-block; in offline mode the direct saturation with finite-difference rates
-(quirk 2 included) after the third stage.
+``n_steps // save_every`` launches, each of ``save_every`` whole steps.
+Each block owns the same 256-ray tiles for the whole launch and keeps
+their dens, r, m and RK3 registers in registers (its first tile) and
+shared memory (the next ones, as far as they fit), and the frozen terms of
+each ray from the launch start; per stage the windowed RHS of K3 with the
+RK3 update, the next stage's deposit, one grid-wide wait for the flux
+(the block partials summed in a fixed order, by blocks without tiles
+where the card has room) and the wind's stage update in every block; in
+offline mode the direct saturation with finite-difference rates (quirk 2
+included) after the third stage.  :func:`resident_plan` mirrors the
+kernel's block plan and on-chip capacity for a given card.
 
 Not ported from the JAX module: ``build_operators``/``_host_linear_map``
 (matrices that fed the TPU's matrix unit; the kernel takes the shear and
 the flux divergence as differences) and the 131,072-ray cap of the TPU's
-fast memory (the rays live in device memory, so any count that fits the
-card runs).  The lifecycle (``cfg.cull``, ``cfg.relaunch``) and a
-prescribed ``wind_fn`` raise ``NotImplementedError``: the JAX package runs
-them in the streaming kernel K6, not ported yet.
+fast memory (tiles past the on-chip capacity stream through device memory,
+so any count that fits the card runs).  The lifecycle (``cfg.cull``,
+``cfg.relaunch``), a prescribed ``wind_fn`` and ``launch_sort=True`` route
+to the streaming kernel K6 (:mod:`msgwam_tpu_torch.ops.step_cuda_stream`),
+the same CUDA template.
 
 Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``), forward only.  For CPU tensors each launch runs
@@ -28,6 +35,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -40,7 +48,7 @@ from . import ray_physics, rhs_cuda
 
 LAUNCHES = 0
 
-MAX_PAD = 256        # csrc/step_resident.cu kResidentPad: c_pad, at most
+MAX_PAD = 256        # csrc/step_resident.cu Fixed<256>: c_pad, at most
 
 
 class Operands(NamedTuple):
@@ -87,6 +95,108 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+# csrc/step_resident.cu's shared-memory layout
+TILE = 256                  # rays per tile = threads per block
+BLOCKS_PER_SM = 4           # kBlocksPerSm, the kernel's launch bound
+INV_BYTES = 8 * 4 * TILE    # one tile's frozen ray terms (RayInv)
+WIN_SHARED = 64             # kWinShared: tile windows kept in shared memory
+H100 = {"sms": 132, "smem_per_sm": 233_472, "reserved": 1_024}
+# an H100 SXM's SMs, shared memory per SM and reserved per block, in bytes
+
+
+class Plan(NamedTuple):
+    """A launch's block plan (``csrc/step_resident.cu:resident_plan``)."""
+
+    blocks_per_member: int
+    tile_blocks: int        # per member; the others only reduce the flux
+    tiles_per_block: int    # at most
+    smem_slots: int         # tiles per block in shared memory
+    smem_bytes: int         # dynamic shared memory per block
+    on_chip_tiles: int      # per member, in registers or shared memory
+    tiles: int              # per member
+
+    @property
+    def on_chip_share(self) -> float:
+        return self.on_chip_tiles / self.tiles
+
+
+def fixed_smem(c_pad: int) -> int:
+    """The kernel's static shared memory (``Fixed<kPad>``): flux sums,
+    seven tables, the deposit tile, the window scratch, 64 tile windows
+    and the per-warp deposit sums."""
+    return 44 * (128 if c_pad <= 128 else 256) + 6656
+
+
+def slot_bytes(online: bool) -> int:
+    """Shared memory of one on-chip tile past the first: dens, r, m, qd,
+    qr, qm (and r_prev, m_prev offline) as float32, and the mask byte, per
+    ray."""
+    return TILE * (4 * (6 if online else 8) + 1)
+
+
+def resident_plan(n_per: int, n_members: int = 1, c_pad: int = 128,
+                  n_flux: int = 99, online: bool = True,
+                  prognostic: bool = True, sms: int = H100["sms"]) -> Plan:
+    """The block plan of K5 (K6/K7 with ``n_members``) for ``n_per`` rays
+    per member, as the kernel computes it on an H100 with ``sms`` SMs.
+    Per member, of the ``R = 4 sms // n_members`` resident blocks
+    ``min(tiles, R)`` own tiles and, with a prognostic wind, up to
+    ``2 n_flux`` of the rest only reduce the flux.  A tile block holds its
+    first tile in registers and up to ``B // slot_bytes`` more in shared
+    memory, ``B = smem_per_sm / 4 - reserved - fixed_smem`` (45,056 bytes on
+    an H100 at ``c_pad = 128``: 7 slots online, 5 offline)."""
+    budget = (H100["smem_per_sm"] // BLOCKS_PER_SM - H100["reserved"]
+              - fixed_smem(c_pad))
+    if c_pad > MAX_PAD or budget < INV_BYTES:
+        raise ValueError(f"c_pad {c_pad}: the kernel takes tables of at most "
+                         f"{MAX_PAD} entries in its shared memory")
+    tiles = -(-n_per // TILE)
+    per_member = BLOCKS_PER_SM * sms // n_members
+    n_tb = max(1, min(tiles, per_member))
+    bpm = n_tb + (min(2 * n_flux, max(0, per_member - n_tb)) if prognostic else 0)
+    tpb = -(-tiles // n_tb)
+    slots = min(tpb - 1, budget // slot_bytes(online))
+    on_chip = sum(min(-(-(tiles - r) // n_tb), slots + 1) for r in range(n_tb))
+    smem = INV_BYTES if tpb == 1 else slots * slot_bytes(online)
+    return Plan(bpm, n_tb, tpb, slots, smem, on_chip, tiles)
+
+
+def device_plan(n_per: int, n_members: int, ops: "Operands",
+                stream: bool) -> Plan:
+    """The kernel's own plan on the current device (``stream``: K6/K7)."""
+    return _device_plan(n_per, n_members, ops.c_pad, ops.n_tab - 1,
+                        bool(ops.online), bool(ops.prognostic), bool(stream),
+                        torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(n_per, n_members, c_pad, n_flux, online, prognostic, stream,
+                 device) -> Plan:
+    del device                              # a key: plans differ by card
+    out = (ctypes.c_int * 7)()
+    _build.check(_build.library().msgwam_step_resident_plan(
+        n_per, n_members, c_pad, n_flux, int(online), int(prognostic),
+        int(stream), ctypes.addressof(out)), "msgwam_step_resident_plan")
+    return Plan(*out)
+
+
+def scratch(plan: Plan, n: int, n_members: int, n_flux: int, device) -> tuple:
+    """The launch's scratch, in the kernel's argument order: the flux and
+    the tile blocks' partials (two stages each), the zeroed counters, the
+    ``(8, n)`` frozen ray terms (unused when every block owns one tile)
+    and the windows of tiles past the 64th of a block."""
+    nb = n_members * plan.blocks_per_member
+    return (torch.empty((2, n_members, 2, n_flux), dtype=torch.float32,
+                        device=device),
+            torch.empty((2, n_members, 2 * n_flux, plan.tile_blocks),
+                        dtype=torch.float64, device=device),
+            torch.zeros((n_members, 2, 2, 32), dtype=torch.int32, device=device),
+            torch.empty((8, n) if plan.tiles_per_block > 1 else (8,),
+                        dtype=torch.float32, device=device),
+            torch.empty((max(1, plan.tiles_per_block - WIN_SHARED), nb),
+                        dtype=torch.int32, device=device))
+
+
 def launch(ops: Operands, dens, r, m, uv, n_steps: int):
     """One launch of ``n_steps`` whole steps on the card: updates ``dens``,
     ``r``, ``m`` and the ``(2, n_tab)`` wind ``uv`` in place and returns
@@ -97,18 +207,12 @@ def launch(ops: Operands, dens, r, m, uv, n_steps: int):
     n = dens.shape[0]
     device = dens.device
     with torch.cuda.device(device):
-        nb = ctypes.c_int(0)
-        _build.check(lib.msgwam_step_resident_blocks(n, ctypes.addressof(nb)),
-                     "msgwam_step_resident_blocks")
-        nb = nb.value
+        plan = device_plan(n, 1, ops, False)
         qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
         r_prev = m_prev = dens_prop = None
         if not ops.online:
             r_prev, m_prev, dens_prop = (torch.empty_like(dens) for _ in range(3))
-        n_flux = ops.n_tab - 1
-        flux = torch.empty((2, n_flux), dtype=torch.float32, device=device)
-        partials = torch.empty((nb, 2, n_flux), dtype=torch.float64,
-                               device=device)
+        work = scratch(plan, n, 1, ops.n_tab - 1, device)
         err = lib.msgwam_step_resident(
             *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
             *(x.data_ptr() for x in ops.frozen), ops.active.data_ptr(), n,
@@ -116,8 +220,9 @@ def launch(ops: Operands, dens, r, m, uv, n_steps: int):
             qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
             _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
             uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-            ops.inv_rho.data_ptr(), flux.data_ptr(), partials.data_ptr(), nb,
-            n_steps, int(ops.online), int(ops.prognostic), int(ops.faithful),
+            ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
+            plan.blocks_per_member, n_steps, int(ops.online),
+            int(ops.prognostic), int(ops.faithful),
             torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check(err, "msgwam_step_resident")

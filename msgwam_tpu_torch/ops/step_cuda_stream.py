@@ -45,7 +45,6 @@ tensors each launch runs the plain twin :func:`step_stream_reference`;
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -82,22 +81,14 @@ def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
     device = dens.device
     relaunch = life is not None and life.src is not None
     with torch.cuda.device(device):
-        bpm = ctypes.c_int(0)
-        _build.check(lib.msgwam_step_stream_blocks(n_per, n_members,
-                                                   ctypes.addressof(bpm)),
-                     "msgwam_step_stream_blocks")
-        bpm = bpm.value
+        plan = step_cuda.device_plan(n_per, n_members, ops, True)
         qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
         r_prev = m_prev = dens_prop = None
         if not ops.online:
             r_prev, m_prev = torch.empty_like(dens), torch.empty_like(dens)
         if not ops.online or relaunch:
             dens_prop = torch.empty_like(dens)
-        n_flux = ops.n_tab - 1
-        flux = torch.empty((n_members, 2, n_flux), dtype=torch.float32,
-                           device=device)
-        partials = torch.empty((n_members * bpm, 2, n_flux), dtype=torch.float64,
-                               device=device)
+        work = step_cuda.scratch(plan, n, n_members, ops.n_tab - 1, device)
         src = life.src if relaunch else (None,) * 4
         err = lib.msgwam_step_stream(
             *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
@@ -106,8 +97,8 @@ def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
             qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
             _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
             uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-            ops.inv_rho.data_ptr(), flux.data_ptr(), partials.data_ptr(), bpm,
-            n_steps, int(ops.online), int(ops.prognostic), int(ops.faithful),
+            ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
+            plan.blocks_per_member, n_steps, int(ops.online), int(ops.prognostic), int(ops.faithful),
             int(life is not None),
             *((life.m_max, life.face_lo, life.face_hi) if life else (0.0,) * 3),
             *(_ptr(x) for x in src), _ptr(wind),
