@@ -13,10 +13,13 @@ use), then, in order:
    relative to the maximum against the float32 twin (bar 2e-5) and the
    float64 twin (bar 1e-6), bitwise equality of two launches, and the time
    of kernel and twin;
-3. K2 (fused RHS) against its twin on the bench population (gaussian
-   source at 2 km, online saturation, float32) at 1e5 and 1e6 rays, each
-   output within 2e-5 of the twin's maximum, the flux against the float64
-   twin, bitwise equality, times;
+3. K2 (fused RHS, the per-stage template with the window compiled out)
+   against its twin on the bench population (gaussian source at 2 km,
+   online saturation, float32) at 1e5 and 1e6 rays, each output within
+   2e-5 of the twin's maximum, the flux within 1e-6 of the float64 twin,
+   bitwise equality of two launches, the block plan against its mirror
+   (``ray_physics.stage_plan``), times; and again on the states after a
+   day (the K2 day's at 1e5, Path A's at 1e6);
 4. K3 (windowed fused RHS) the same way at 1e5 and 1e6, and on a mixed
    population (tiles 5, 30 and 90 km tall, ``window_cells=16,
    window_cells2=48``) whose tiles take the first window, the second tier
@@ -24,16 +27,22 @@ use), then, in order:
    within 1e-6 of the float64 twin, and K3's outputs bitwise K2's;
 5. the K2 day: ``simulate`` with ``rhs_backend="pallas", window_cells=0``
    at 1e5 rays for 720 steps (one simulated day at dt = 120 s): exactly
-   3 x 720 K2 launches, a finite final state, the first 5 steps against the
-   plain torch path, and ray-steps/s and ``sim_day_wall_s`` of both paths;
-   then K2 against its twin again on the spread-out final state;
+   3 x 720 K2 launches, a finite final state, device operations per step
+   (``torch.profiler``), the first 5 steps against the plain torch path,
+   and ray-steps/s and ``sim_day_wall_s`` of both paths; then K2 against
+   its twin again on the spread-out final state;
 6. Path A, the default fused step: ``simulate`` with
-   ``rhs_backend="pallas"`` and the default ``window_cells`` at 1e5 rays
-   for 720 steps: exactly 3 x 720 K4 launches and none of K2 or K3, the
-   first 5 steps against the plain path, K4 against its twin over one
-   step, device operations per step and idle share (``torch.profiler``),
-   the window mirror's fallback share at the start and the end of the
-   day; then 3 rk4 steps through K3, 4 launches a step;
+   ``rhs_backend="pallas"`` and the default ``window_cells`` at 1e5 and
+   1e6 rays for 720 steps each: exactly 3 x 720 K4 launches and none of
+   K2 or K3, the window mirror's fallback share at the start and the end
+   of the day; at 1e5 at most 6 device operations per step
+   (``torch.profiler`` over 10 steps), one device kernel per K4 launch,
+   the first 5 steps against the plain path, and 3 rk4 steps through K3,
+   4 launches a step; at both sizes, on the launch state and after the
+   day, K4 against its twin over one step (rays and wind) and over one
+   later-stage launch (y', q' and the wind's u, v, qu, qv from the
+   kernel's tail), bitwise repeats, and the device time of one launch and
+   of one step;
 7. Path B, ``simulate_resident`` at 1e5 rays for 720 steps with
    ``save_every=72``: exactly 10 K5 launches, a finite final state, K5
    against its twin and against Path A over 9 steps (online and offline,
@@ -365,11 +374,21 @@ def phase_k1(n: int, device) -> dict:
     return res
 
 
+def check_plan(state, bg, what: str):
+    """The per-stage kernels' block plan on the card against its mirror."""
+    n = state.rays.r.shape[0]
+    sms = torch.cuda.get_device_properties(state.rays.r.device).multi_processor_count
+    plan = rhs_cuda.device_plan(n, bg.centers.shape[0] - 1, state.rays.r.device)
+    mirror = ray_physics.stage_plan(n, bg.centers.shape[0] - 1, sms)
+    check(plan == mirror, f"{what}: plan {plan} against the mirror {mirror}")
+    return plan
+
+
 def phase_k2(state, statics, bg, cfg, label: str) -> dict:
     n = state.rays.r.shape[0]
-    prepared = (*rhs_cuda.prepare_inputs(DT, state, statics, bg, cfg),
-                rhs_cuda.ray_fields(state, statics), statics.active,
-                cfg.saturate_online, cfg.faithful_saturation)
+    plan = check_plan(state, bg, f"K2 at {n}")
+    inp = rhs_cuda.inputs(DT, state, statics, bg, cfg)
+    work = rhs_cuda.scratch(n, bg.centers.shape[0], state.rays.r.device)
     tend, flux = rhs_cuda.rhs_fused(DT, state, statics, bg, cfg)
     tend2, flux2 = rhs_cuda.rhs_fused(DT, state, statics, bg, cfg)
     torch.cuda.synchronize()
@@ -381,12 +400,12 @@ def phase_k2(state, statics, bg, cfg, label: str) -> dict:
     bitwise = all(torch.equal(tend[f], tend2[f]) for f in tend) and \
         torch.equal(flux, flux2)
     res = {
-        "n": n, "state": label, "errs": errs,
+        "n": n, "state": label, "plan": tuple(plan), "errs": errs,
         "flux_err_vs_f64": rel(tflux64, flux),
         "max_abs_err": max(float((tend[f].double() - ttend[f].double()).abs().max())
                            for f in tend),
         "bitwise": bool(bitwise),
-        "ms": cuda_ms(lambda: rhs_cuda.launch(*prepared)),
+        "ms": cuda_ms(lambda: rhs_cuda.launch(inp, *state.mean, work)),
         "plain_ms": cuda_ms(
             lambda: rhs_cuda.rhs_fused_reference(DT, state, statics, bg, cfg),
             iters=5),
@@ -394,30 +413,33 @@ def phase_k2(state, statics, bg, cfg, label: str) -> dict:
     # bytes: 11 fields and the mask in, three tendencies out, per ray
     res["bound_ms"], res["bound_by"] = bound(
         57 * n, n * (RHS_OPS + DEPOSIT_CELL_OPS * state_cells(state, bg)))
-    log(f"[3] K2 n={n} ({label}): kernel vs twin "
+    log(f"[3] K2 n={n} ({label}, plan {tuple(plan)}): kernel vs twin "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; flux vs f64 twin {res['flux_err_vs_f64']:.3e}; bitwise repeat "
-        f"{res['bitwise']}; kernel {res['ms']:.4f} ms, twin {res['plain_ms']:.4f} ms")
+        f"{res['bitwise']}; kernel {res['ms']:.4f} ms (bound "
+        f"{res['bound_ms']:.5f} ms), twin {res['plain_ms']:.4f} ms")
     for k, v in errs.items():
         check(v <= TWIN_BAR, f"K2 {k} vs twin at {n} ({label})")
-    check(res["flux_err_vs_f64"] <= TWIN_BAR, f"K2 flux vs f64 twin at {n}")
+    check(res["flux_err_vs_f64"] < F64_BAR, f"K2 flux vs f64 twin at {n}")
     check(res["bitwise"], f"K2 bitwise repeat at {n}")
     return res
 
 
 def phase_k3(state, statics, bg, cfg, label: str) -> dict:
     n = state.rays.r.shape[0]
+    plan = check_plan(state, bg, f"K3 at {n}")
     params, scalars, tables = rhs_cuda.prepare_inputs(DT, state, statics, bg, cfg)
     fields = rhs_cuda.ray_fields(state, statics)
     window = rhs_cuda_windowed.window_for(cfg, bg.centers.shape[0])
-    prepared = (params, scalars, tables, fields, statics.active, window,
-                cfg.saturate_online, cfg.faithful_saturation)
-    outs, flux, tiers = rhs_cuda_windowed.launch(*prepared, tiers=True)
-    outs2, flux2, _ = rhs_cuda_windowed.launch(*prepared)
+    inp = rhs_cuda.inputs(DT, state, statics, bg, cfg)
+    work = rhs_cuda.scratch(n, bg.centers.shape[0], state.rays.r.device)
+    outs, flux, tiers = rhs_cuda_windowed.launch(inp, *state.mean, tiers=True)
+    outs2, flux2, _ = rhs_cuda_windowed.launch(inp, *state.mean)
     k2_tend, k2_flux = rhs_cuda.rhs_fused(DT, state, statics, bg, cfg)
     torch.cuda.synchronize()
-    ttend, tflux, ttiers = ray_physics.fused(*prepared[:5], cfg.saturate_online,
-                                             cfg.faithful_saturation, window)
+    prepared = (params, scalars, tables, fields, statics.active)
+    ttend, tflux, ttiers = ray_physics.fused(*prepared, cfg.saturate_online,
+                                             cfg.faithful_saturation, window, plan)
     s64, st64, bg64 = to64((state, statics, bg))
     _, tflux64 = rhs_cuda_windowed.rhs_fused_windowed_reference(DT, s64, st64,
                                                                 bg64, cfg)
@@ -435,10 +457,11 @@ def phase_k3(state, statics, bg, cfg, label: str) -> dict:
         and bool(torch.equal(flux, k2_flux)),
         "tiers_as_twin": bool(torch.equal(tiers.long().cpu(), ttiers.cpu())),
         "tier_counts": {t: int((tiers == t).sum()) for t in (1, 2, 0)},
-        "ms": cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared)),
+        "ms": cuda_ms(lambda: rhs_cuda_windowed.launch(inp, *state.mean,
+                                                       work=work)),
         "plain_ms": cuda_ms(lambda: ray_physics.fused(
-            *prepared[:5], cfg.saturate_online, cfg.faithful_saturation,
-            window), iters=5),
+            *prepared, cfg.saturate_online, cfg.faithful_saturation,
+            window, plan), iters=5),
     }
     res["bound_ms"], res["bound_by"] = bound(
         57 * n, n * (RHS_OPS + DEPOSIT_CELL_OPS * state_cells(state, bg)))
@@ -536,6 +559,8 @@ def phase_k2_day(device, smi: str) -> tuple:
     log(f"[5]   plain path: sim_day_wall_s {wall_plain:.4f}, "
         f"ray-steps/s {rate_plain:.4e}")
 
+    prof = profile_run(lambda: timed_simulate(state, statics, bg, cfg, 10), 10)
+    log(f"[5]   profiler over 10 steps: {prof}")
     a, _, _ = timed_simulate(state, statics, bg, cfg, 5)
     b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
     errs = traj_errs(b, a)
@@ -545,107 +570,173 @@ def phase_k2_day(device, smi: str) -> tuple:
     return final, statics, bg, cfg, {
         "launches": counts["K2"], "sim_day_wall_s": wall,
         "ray_steps_per_s": rate, "plain_sim_day_wall_s": wall_plain,
-        "plain_ray_steps_per_s": rate_plain, "traj_errs": errs,
+        "plain_ray_steps_per_s": rate_plain, "traj_errs": errs, "profile": prof,
     }
 
 
-def phase_path_a(device, smi: str) -> dict:
-    """The default fused step: K4, three launches per step."""
-    cfg, bg, state, statics = bench_setup(N_MAIN, device, window_cells=-1)
-    timed_simulate(state, statics, bg, cfg, 3)
-    fb_start = window_fallback_stats(DT, state, statics, bg, cfg)
-    reset_launches()
-    final, hist, wall = timed_simulate(state, statics, bg, cfg, DAY_STEPS)
-    counts = expect_launches("Path A day", K4=3 * DAY_STEPS)
-    check(finite(final), "Path A final state is not finite")
-    check(hist[0].rays.r.shape == (1, N_MAIN), "Path A history layout")
-    fb_end = window_fallback_stats(DT, final, statics, bg, cfg)
-    rate = N_MAIN * DAY_STEPS / wall
-    prof = profile_run(lambda: timed_simulate(state, statics, bg, cfg, 10), 10)
-    log(f"[6] Path A n={N_MAIN}, {DAY_STEPS} steps, window_cells=-1: launches "
-        f"{counts}; sim_day_wall_s {wall:.4f}, ray-steps/s {rate:.4e} on {smi}")
-    log(f"[6]   profiler over 10 steps: {prof}")
-    log(f"[6]   window mirror, tiles leaving the first window: start "
-        f"{float(fb_start.fallback_rate):.4f}, end {float(fb_end.fallback_rate):.4f}"
-        f" (full width {float(fb_start.full_rate):.4f}, "
-        f"{float(fb_end.full_rate):.4f}) of {int(fb_start.n_blocks)} tiles")
-
-    a, _, _ = timed_simulate(state, statics, bg, cfg, 5)
-    b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
-    errs = traj_errs(b, a)
-    log(f"[6]   first 5 steps, Path A vs plain path: {fmt(errs)}")
-    for k, v in errs.items():
-        check(v < TRAJ_BAR, f"Path A 5-step trajectory {k}")
-
-    # K4 against its twin over one step, and one launch's device time
+def phase_k4(state, statics, bg, cfg, label: str) -> dict:
+    """K4 against its twin on a state: one step (three launches, the wind
+    updated in the kernel's tail) and one later-stage launch with the same
+    inputs, the wind's outputs (u, v, qu, qv) included; bitwise repeat;
+    the device time of one launch and of one step."""
+    n = state.rays.r.shape[0]
+    device = state.rays.r.device
+    plan = check_plan(state, bg, f"K4 at {n}")
     one = rhs_cuda_windowed.rk3_step_fused_windowed(DT, state, statics, bg, cfg)
-    twin = rhs_cuda_windowed.rk3_step_fused_windowed_reference(DT, state,
-                                                               statics, bg, cfg)
-    k4_errs = traj_errs(twin, one)
-    k4_abs = max(float((getattr(one.rays, f).double()
-                        - getattr(twin.rays, f).double()).abs().max())
-                 for f in ("dens", "r", "m"))
-    for k, v in k4_errs.items():
-        check(v <= TWIN_BAR, f"K4 step {k} vs twin")
-    params, scalars, tables = rhs_cuda.prepare_inputs(DT, state, statics, bg, cfg)
-    fields = rhs_cuda.ray_fields(state, statics)
-    window = rhs_cuda_windowed.window_for(cfg, bg.centers.shape[0])
+    again = rhs_cuda_windowed.rk3_step_fused_windowed(DT, state, statics, bg, cfg)
+    twin = rhs_cuda_windowed.rk3_step_fused_windowed_reference(
+        DT, state, statics, bg, cfg, plan)
+    errs = traj_errs(twin, one)
+    errs["v"] = rel(twin.mean.v, one.mean.v)
+    bitwise = all(torch.equal(x, y) for x, y in
+                  zip((*one.rays, *one.mean), (*again.rays, *again.mean)))
+    # one later-stage launch: y, q and the wind in, y', q' and the wind out
+    inp = rhs_cuda.inputs(DT, state, statics, bg, cfg)
+    fields = list(inp.fields)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q = tuple(1e-3 * torch.randn(n, device=device, generator=gen) * f
+              for f in (fields[0], fields[1], fields[5]))
+    n_tab = bg.centers.shape[0]
+    quv = tuple(1e-4 * torch.randn(n_tab, device=device, generator=gen)
+                for _ in range(2))
+    stage = ray_physics.RK3_STAGES[1]
     outs = tuple(torch.empty_like(fields[0]) for _ in range(3))
-    q = tuple(torch.zeros_like(fields[0]) for _ in range(3))
-    stage = (5.0 / 9.0, 15.0 / 16.0, False)
+    q_k = tuple(x.clone() for x in q)
+    wind = tuple(torch.empty((4, n_tab), device=device).unbind(0))
+    wind[2].copy_(quv[0])
+    wind[3].copy_(quv[1])
+    rhs_cuda_windowed.launch(inp, *state.mean, fields, outs, q_k, wind, stage)
+    ys, q_t, _, wind_t = rhs_cuda_windowed.stage_reference(
+        inp, fields, q, *state.mean, quv, stage, plan)
+    stage_errs = {f: rel(t, k) for f, t, k in
+                  zip(("dens", "r", "m", "q_dens", "q_r", "q_m", "u", "v", "qu",
+                       "qv"), (*ys, *q_t, *wind_t), (*outs, *q_k, *wind))}
+    work = rhs_cuda.scratch(n, n_tab, device)
+    wbuf = tuple(torch.empty((4, n_tab), device=device).unbind(0))
     ms = cuda_ms(lambda: rhs_cuda_windowed.launch(
-        params, scalars, tables, fields, statics.active, window,
-        cfg.saturate_online, cfg.faithful_saturation, outs=outs, q=q,
-        stage=stage))
+        inp, *state.mean, fields, outs, q_k, wbuf, stage, work=work))
+    step_ms = cuda_ms(lambda: rhs_cuda_windowed.rk3_step_fused_windowed(
+        DT, state, statics, bg, cfg))
     plain_ms = cuda_ms(lambda: rhs_cuda_windowed.stage_reference(
-        params, scalars, tables, fields, statics.active, window, cfg, stage, q),
-        iters=5)
+        inp, fields, q, *state.mean, quv, stage, plan), iters=5)
     # bytes: K3's plus q in and out, per ray (a later stage reads q)
-    k4_bound = bound(81 * N_MAIN, N_MAIN * (RHS_OPS + RK3_OPS + DEPOSIT_CELL_OPS
-                                           * state_cells(state, bg)))
-    log(f"[6]   K4 one step vs twin: {fmt(k4_errs)}; one launch {ms:.4f} ms "
-        f"(bound {k4_bound[0]:.5f} ms, {k4_bound[1]}), twin {plain_ms:.4f} ms")
+    b_ms, b_by = bound(81 * n, n * (RHS_OPS + RK3_OPS + DEPOSIT_CELL_OPS
+                                    * state_cells(state, bg)))
+    abs_err = max(float((getattr(one.rays, f).double()
+                         - getattr(twin.rays, f).double()).abs().max())
+                  for f in ("dens", "r", "m"))
+    log(f"[6]   K4 n={n} ({label}, plan {tuple(plan)}): one step vs twin "
+        f"{fmt(errs)}; one stage launch vs twin {fmt(stage_errs)}; bitwise "
+        f"repeat {bitwise}; one launch {ms:.5f} ms (bound {b_ms:.5f} ms, "
+        f"{b_by}, share {b_ms / ms:.3f}), one step {step_ms:.5f} ms, twin "
+        f"stage {plain_ms:.4f} ms")
+    for k, v in (*errs.items(), *stage_errs.items()):
+        check(v <= TWIN_BAR, f"K4 {k} vs twin at {n} ({label})")
+    check(bitwise, f"K4 bitwise repeat at {n} ({label})")
+    return {"n": n, "state": label, "plan": tuple(plan), "errs": errs,
+            "stage_errs": stage_errs, "bitwise": bitwise, "max_abs_err": abs_err,
+            "ms": ms, "step_ms": step_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
-    # the generic integrators take K3: 4 launches per rk4 step
-    cfg4 = cfg.replace(integrator="rk4")
-    reset_launches()
-    a4, _, _ = timed_simulate(state, statics, bg, cfg4, 3)
-    k3_counts = expect_launches("rk4 through K3", K3=12)
-    b4, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg4), 3)
-    rk4_errs = traj_errs(b4, a4)
-    log(f"[6]   rk4, 3 steps: launches {k3_counts}; vs plain rk4 {fmt(rk4_errs)}")
-    for k, v in rk4_errs.items():
-        check(v < TRAJ_BAR, f"rk4 through K3, {k}")
 
-    # the same step at 1e6 rays
-    cfg6, bg6, state6, statics6 = bench_setup(1_000_000, device, window_cells=-1)
-    timed_simulate(state6, statics6, bg6, cfg6, 2)
-    final6, _, wall6 = timed_simulate(state6, statics6, bg6, cfg6, 20)
-    check(finite(final6), "Path A at 1e6 not finite")
-    params, scalars, tables = rhs_cuda.prepare_inputs(DT, state6, statics6, bg6,
-                                                      cfg6)
-    fields = rhs_cuda.ray_fields(state6, statics6)
-    outs = tuple(torch.empty_like(fields[0]) for _ in range(3))
-    q = tuple(torch.zeros_like(fields[0]) for _ in range(3))
-    prepared6 = (params, scalars, tables, fields, statics6.active, window,
-                 cfg6.saturate_online, cfg6.faithful_saturation)
-    ms6 = cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared6, outs=outs, q=q,
-                                                   stage=stage))
-    k3_ms6 = cuda_ms(lambda: rhs_cuda_windowed.launch(*prepared6))
-    log(f"[6]   1e6 rays, 20 steps: {wall6 * 50:.4f} ms per step, ray-steps/s "
-        f"{1e6 * 20 / wall6:.4e}; one K4 launch {ms6:.4f} ms, one K3 launch "
-        f"{k3_ms6:.4f} ms")
-    return {"launches": counts["K4"], "k3_launches": k3_counts["K3"],
-            "sim_day_wall_s": wall, "ray_steps_per_s": rate, "profile": prof,
-            "fallback_start": float(fb_start.fallback_rate),
-            "fallback_end": float(fb_end.fallback_rate),
-            "full_start": float(fb_start.full_rate),
-            "full_end": float(fb_end.full_rate),
-            "traj_errs": errs, "k4_errs": k4_errs, "max_abs_err": k4_abs,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": k4_bound[0],
-            "bound_by": k4_bound[1], "rk4_errs": rk4_errs,
-            "ms_per_step_1e6": wall6 * 50, "ray_steps_per_s_1e6": 1e6 * 20 / wall6,
-            "ms_1e6": ms6, "k3_ms_1e6": k3_ms6}
+def kernel_events(fn) -> dict:
+    """The device kernels ``torch.profiler`` records over one call of
+    ``fn``, counted by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def phase_path_a(device, smi: str) -> dict:
+    """The default fused step: K4, three launches per step, no glue."""
+    res = {}
+    spread = {}
+    for n in SIZES:
+        cfg, bg, state, statics = bench_setup(n, device, window_cells=-1)
+        timed_simulate(state, statics, bg, cfg, 3)
+        fb_start = window_fallback_stats(DT, state, statics, bg, cfg)
+        reset_launches()
+        final, hist, wall = timed_simulate(state, statics, bg, cfg, DAY_STEPS)
+        counts = expect_launches(f"Path A day at {n}", K4=3 * DAY_STEPS)
+        check(finite(final), f"Path A final state at {n} is not finite")
+        check(hist[0].rays.r.shape == (1, n), "Path A history layout")
+        fb_end = window_fallback_stats(DT, final, statics, bg, cfg)
+        rate = n * DAY_STEPS / wall
+        log(f"[6] Path A n={n}, {DAY_STEPS} steps, window_cells=-1: launches "
+            f"{counts}; sim_day_wall_s {wall:.4f}, ray-steps/s {rate:.4e} on "
+            f"{smi}")
+        log(f"[6]   window mirror, tiles leaving the first window: start "
+            f"{float(fb_start.fallback_rate):.4f}, end "
+            f"{float(fb_end.fallback_rate):.4f} (full width "
+            f"{float(fb_start.full_rate):.4f}, {float(fb_end.full_rate):.4f}) "
+            f"of {int(fb_start.n_blocks)} tiles")
+        r = {"launches": counts["K4"], "sim_day_wall_s": wall,
+             "ray_steps_per_s": rate,
+             "fallback_start": float(fb_start.fallback_rate),
+             "fallback_end": float(fb_end.fallback_rate),
+             "full_start": float(fb_start.full_rate),
+             "full_end": float(fb_end.full_rate)}
+        if n == N_MAIN:
+            # device operations per step, and one kernel per K4 launch
+            reset_launches()
+            prof = profile_run(lambda: timed_simulate(state, statics, bg, cfg, 10),
+                               10)
+            k4_calls = launches()["K4"]
+            reset_launches()
+            kernels = kernel_events(lambda: rhs_cuda_windowed.rk3_step_fused_windowed(
+                DT, state, statics, bg, cfg))
+            per_call = launches()["K4"]
+            log(f"[6]   profiler over 10 steps: {prof}; K4 launches {k4_calls}; "
+                f"the device kernels of one K4 step ({per_call} launches): "
+                f"{kernels}")
+            check(prof["device_ops_per_step"] is not None
+                  and prof["device_ops_per_step"] <= 6,
+                  f"Path A: {prof['device_ops_per_step']} device ops per step")
+            check(sum(kernels.values()) == per_call == 3,
+                  f"Path A: one kernel per K4 launch, got {kernels}")
+            r["profile"] = prof
+            r["step_kernels"] = kernels
+            a, _, _ = timed_simulate(state, statics, bg, cfg, 5)
+            b, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg), 5)
+            errs = traj_errs(b, a)
+            log(f"[6]   first 5 steps, Path A vs plain path: {fmt(errs)}")
+            for k, v in errs.items():
+                check(v < TRAJ_BAR, f"Path A 5-step trajectory {k}")
+            r["traj_errs"] = errs
+            # the generic integrators take K3: 4 launches per rk4 step
+            cfg4 = cfg.replace(integrator="rk4")
+            reset_launches()
+            a4, _, _ = timed_simulate(state, statics, bg, cfg4, 3)
+            k3_counts = expect_launches("rk4 through K3", K3=12)
+            b4, _, _ = timed_simulate(state, statics, bg, plain_cfg(cfg4), 3)
+            rk4_errs = traj_errs(b4, a4)
+            log(f"[6]   rk4, 3 steps: launches {k3_counts}; vs plain rk4 "
+                f"{fmt(rk4_errs)}")
+            for k, v in rk4_errs.items():
+                check(v < TRAJ_BAR, f"rk4 through K3, {k}")
+            r["k3_launches"] = k3_counts["K3"]
+            r["rk4_errs"] = rk4_errs
+        r["k4_launch"] = phase_k4(state, statics, bg, cfg, "launch")
+        r["k4_spread"] = phase_k4(final, statics, bg, cfg,
+                                  f"after {DAY_STEPS} steps")
+        res[n] = r
+        spread[n] = (final, statics, bg, cfg)
+        del cfg, bg, state, statics, final, hist
+    main = res[N_MAIN]
+    k4 = main["k4_launch"]
+    out = {**main, "max_abs_err": max(res[n][k]["max_abs_err"] for n in SIZES
+                                      for k in ("k4_launch", "k4_spread")),
+           **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+           "sizes": {str(n): res[n] for n in SIZES}}
+    return out, spread
 
 
 def resident_twin(state, statics, bg, cfg, n_steps: int, save_every: int):
@@ -1183,7 +1274,10 @@ def main() -> int:
     check(all(k3["mixed"]["tier_counts"].values()), "mixed: a tier never ran")
     final, statics, bg, cfg, k2_day = phase_k2_day(device, smi)
     k2_spread = phase_k2(final, statics, bg, cfg, f"after {DAY_STEPS} steps")
-    path_a = phase_path_a(device, smi)
+    path_a, spread = phase_path_a(device, smi)
+    k2_spread_1e6 = phase_k2(*spread[SIZES[1]],
+                             f"after a Path A day of {DAY_STEPS} steps")
+    del spread
     path_b = phase_path_b(device, smi)
     route = phase_k1_route(device)
     path_d = phase_path_d(device, smi)
@@ -1198,41 +1292,43 @@ def main() -> int:
          "max_abs_err": k1[N_MAIN]["max_abs_err"],
          **timing(k1[N_MAIN])},
         {"name": "K2 fused RHS (rhs_fused)", "route": "cuda",
-         "source": "msgwam_tpu_torch/csrc/rhs_fused.cu",
+         "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
-         "launches": k2_day["launches"],
-         "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"]),
+         "launches": k2_day["launches"], "redesigned": 5,
+         "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"],
+                            k2_spread_1e6["max_abs_err"]),
          **timing(k2_spread)},
         {"name": "K3 windowed fused RHS (rhs_fused_windowed)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:338",
-         "launches": path_a["k3_launches"],
+         "launches": path_a["k3_launches"], "redesigned": 5,
          "max_abs_err": max(k3[N_MAIN]["max_abs_err"], k3["mixed"]["max_abs_err"]),
          **timing(k3[N_MAIN])},
         {"name": "K4 stage-fused windowed RHS (rk3_step_fused_windowed)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
-         "launches": path_a["launches"], "max_abs_err": path_a["max_abs_err"],
-         **timing(path_a)},
+         "launches": path_a["launches"], "redesigned": 5,
+         "max_abs_err": path_a["max_abs_err"], **timing(path_a)},
         {"name": "K5 whole-run kernel (simulate_resident)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
-         "launches": path_b["launches"], "max_abs_err": path_b["max_abs_err"],
-         **timing(path_b)},
+         "launches": path_b["launches"], "redesigned": 4,
+         "max_abs_err": path_b["max_abs_err"], **timing(path_b)},
         {"name": "K6 whole-run kernel with the lifecycle (simulate_streaming)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
-         "launches": path_d["launches"], "max_abs_err": path_d["max_abs_err"],
-         **timing(path_d)},
+         "launches": path_d["launches"], "redesigned": 4,
+         "max_abs_err": path_d["max_abs_err"], **timing(path_d)},
         {"name": "K7 ensemble whole-run kernel (simulate_streaming_ensemble)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
-         "launches": path_e["launches"], "max_abs_err": path_e["max_abs_err"],
-         **timing(path_e)},
+         "launches": path_e["launches"], "redesigned": 4,
+         "max_abs_err": path_e["max_abs_err"], **timing(path_e)},
     ]
     summary = {
         "k1": {str(n): v for n, v in k1.items()},
-        "k2": {**{str(n): v for n, v in k2.items()}, "spread": k2_spread},
+        "k2": {**{str(n): v for n, v in k2.items()}, "spread": k2_spread,
+               "spread_1e6": k2_spread_1e6},
         "k3": {str(n): v for n, v in k3.items()},
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
         "k1_route": route, "path_d": path_d, "launch_sort": sort,

@@ -52,26 +52,34 @@ SIGNATURES = {
         _P, _P, _I,                   # out partials n_blocks
         _P,                           # stream
     ],
+    "msgwam_rhs_plan": [
+        _I, _I,                       # n n_flux
+        _P,                           # out[3]
+    ],
     "msgwam_rhs_fused": [
-        _P, _F, _F, _F, _F,           # params(g0c, dz, g0f) dt bvf kappa f0
-        _P, _P, _P, _I,               # du_dz dv_dz rhobar n_tab
+        _P, _P, _P, _P, _P, _I,       # centers faces u v rhobar n_tab
+        _F, _F, _F, _F,               # dt bvf kappa f0
         _P, _P, _P, _P, _P, _P, _P, _P,   # dens r dr k l m dm phi
         _P, _P, _P, _P,               # dkk dll area active
         _I,                           # n
-        _P, _P, _P, _P, _P, _I,       # dens_st drr_st dmm_st flux partials n_blocks
-        _I, _I,                       # saturate_online faithful
+        _P, _P, _P, _P,               # dens_st drr_st dmm_st flux
+        _P, _P, _P, _I,               # partials ranges sync parity
+        _I, _I, _I, _I,               # n_blocks n_red saturate_online faithful
         _P,                           # stream
     ],
     "msgwam_rhs_windowed": [
-        _P, _F, _F, _F, _F,           # params(g0c, dz, g0f) dt bvf kappa f0
-        _P, _P, _P, _I,               # du_dz dv_dz rhobar n_tab
-        _I, _I, _I,                   # c_pad w1 w2
+        _P, _P, _P, _P, _P, _P,       # centers faces u v rhobar pg
+        _I, _I, _I, _I,               # n_tab c_pad w1 w2
+        _F, _F, _F, _F, _F,           # dt bvf kappa f0 ff0
         _P, _P, _P, _P, _P, _P, _P, _P,   # dens r dr k l m dm phi
         _P, _P, _P, _P,               # dkk dll area active
         _I,                           # n
         _P, _P, _P, _P, _P, _P,       # out_dens out_r out_m q_dens q_r q_m
-        _P, _P, _P, _I,               # flux partials tiers n_blocks
-        _I, _I, _I, _F, _F, _I,       # saturate_online faithful staged cc bc first
+        _P, _P, _P, _P,               # u_out v_out qu qv
+        _P, _P, _P, _P, _I, _P,       # flux partials ranges sync parity tiers
+        _I, _I, _I, _I,               # n_blocks n_red saturate_online faithful
+        _I, _I,                       # staged prognostic
+        _F, _F, _I,                   # cc bc first
         _P,                           # stream
     ],
     "msgwam_step_resident_plan": [

@@ -1,6 +1,6 @@
 // Ray -> grid flux deposit, shared by the projection kernel (K1,
-// projection.cu), the fused RHS kernels (K2, rhs_fused.cu; K3/K4,
-// rhs_windowed.cu) and the whole-run kernel (K5-K7, step_resident.cu).
+// projection.cu), the per-stage kernels (K2-K4, rhs_windowed.cu) and the
+// whole-run kernel (K5-K7, step_resident.cu).
 //
 // Reference semantics (lib/libprop.py:121-160, kept by both Pallas kernels):
 // a ray volume [r_low, r_up] covers cells nlow <= c < nup, with
@@ -18,10 +18,12 @@
 // shuffles.  A ray covers 1-3 cells at the bench population, so a whole warp
 // shares each cell's walk.  The block adds each cell's tile sum to a
 // float64 accumulator in shared memory and ends with one per-block partial;
-// a second pass adds the partials in block order (a kernel of its own here;
-// K5-K7 have their own, step_resident.cu's FluxSync, and walk tiles that
-// touch at most 8 cells with several warps per cell).  No float atomics:
-// the result is bitwise reproducible for a given block count.
+// a second pass adds the partials in block order (for K1 a kernel of its
+// own here; K2-K4 sum in their own tail, rhs_windowed.cu, and K5-K7 in
+// step_resident.cu's FluxSync).  K2-K7 walk a tile by its width: several
+// warps per cell up to 8 cells (walk), deposit_walk up to kWideCells, a
+// walk per warp past that (walk_wide).  No float atomics: the result is
+// bitwise reproducible for a given block count.
 #pragma once
 
 #include <climits>
@@ -135,6 +137,166 @@ __device__ __forceinline__ void deposit_walk(const DepositTile& t, Acc& acc,
       acc.v[0][c] += s0;
       acc.v[1][c] += s1;
     }
+  }
+}
+
+// The walks of the whole-run kernel, shared by K2-K7.  ``Sh`` is the
+// block's shared memory: a DepositTile ``tile``, float64 sums ``acc`` and
+// per-warp sums ``wpart[kWarps][2]``.
+constexpr int kWideCells = 32;      // walk_wide past this tile width
+
+// The deposit walk of a wide tile (its touched cells [cmin, cmax) more than
+// kWideCells): each warp sums its own 32 rays, lane l for cell wmin + l of
+// the warp's cells (32 more per pass), adding the rays in order; then the
+// warps add their cell sums to the block's sums one after the other, warp 0
+// first.  A lane tests 32 rays per pass and waits at 8 barriers, whatever
+// the tile's width; deposit_walk's gather has a lane test about width rays
+// and no barrier, so it takes the tiles up to kWideCells cells.  Ends with a
+// block barrier.
+template <class Sh>
+__device__ __forceinline__ void walk_wide(Sh& S, float g0, float dz) {
+  const DepositTile& t = S.tile;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int passes = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w)
+    if (t.wmax[w] > t.wmin[w]) passes = max(passes, (t.wmax[w] - t.wmin[w] + 31) / 32);
+  const bool live = t.wmax[wid] > t.wmin[wid];
+  for (int p = 0; p < passes; ++p) {
+    const int c = live ? t.wmin[wid] + 32 * p + lane : 0;
+    const bool mine = live && c < t.wmax[wid];
+    double s0 = 0.0, s1 = 0.0;
+    if (mine) {
+      const float cf = static_cast<float>(c);
+      const float face_lo = g0 + cf * dz;
+      const float face_hi = g0 + (cf + 1.0f) * dz;
+      for (int k = 0; k < 32; ++k) {
+        const int i = wid * 32 + k;
+        if (t.nlow[i] <= c && c < t.nup[i]) {
+          const float ov = fabsf(fminf(face_hi, t.hi[i]) - fmaxf(face_lo, t.lo[i]));
+          s0 += static_cast<double>(ov * t.v0[i]);
+          s1 += static_cast<double>(ov * t.v1[i]);
+        }
+      }
+    }
+    for (int w = 0; w < kWarps; ++w) {
+      if (wid == w && mine) {
+        S.acc.v[0][c] += s0;
+        S.acc.v[1][c] += s1;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The staged tile's touched cells [cmin, cmax) (block-uniform after the
+// barrier that follows deposit_stage); empty when cmax <= cmin.
+__device__ __forceinline__ void tile_cells(const DepositTile& t, int& cmin,
+                                           int& cmax) {
+  cmin = INT_MAX;
+  cmax = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    cmin = min(cmin, t.wmin[w]);
+    cmax = max(cmax, t.wmax[w]);
+  }
+}
+
+// The deposit walk of a staged tile whose touched cells [cmin, cmax) number
+// at most kWarps: kw = kWarps / P warps per cell (P the width rounded up to
+// a power of two), each lane adding every (32 kw)-th ray in order, a fixed
+// butterfly per warp, and the warp sums to wpart; after the caller's
+// barrier, walk_finish adds each cell's kw warp sums in warp order to the
+// block's sums.  Wider tiles take deposit_walk or walk_wide.  Returns P
+// (0: nothing to finish).
+template <class Sh>
+__device__ __forceinline__ int walk(Sh& S, float g0, float dz, int& cmin) {
+  const DepositTile& t = S.tile;
+  int cmax;
+  tile_cells(t, cmin, cmax);
+  if (cmax <= cmin) return 0;            // block-uniform: no live ray
+  const int width = cmax - cmin;
+  if (width > kWideCells) {
+    walk_wide(S, g0, dz);
+    return 0;
+  }
+  if (width > kWarps) {
+    deposit_walk(t, S.acc, g0, dz);
+    return 0;
+  }
+  int P = 1;
+  while (P < width) P <<= 1;
+  const int kw = kWarps / P;
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = cmin + wid / kw;
+  double s0 = 0.0, s1 = 0.0;
+  if (c < cmax) {
+    const float cf = static_cast<float>(c);
+    const float face_lo = g0 + cf * dz;
+    const float face_hi = g0 + (cf + 1.0f) * dz;
+    for (int i = (wid % kw) * 32 + lane; i < kThreads; i += kw * 32) {
+      if (t.nlow[i] <= c && c < t.nup[i]) {
+        const float ov = fabsf(fminf(face_hi, t.hi[i]) - fmaxf(face_lo, t.lo[i]));
+        s0 += static_cast<double>(ov * t.v0[i]);
+        s1 += static_cast<double>(ov * t.v1[i]);
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if (lane == 0) {
+    S.wpart[wid][0] = s0;
+    S.wpart[wid][1] = s1;
+  }
+  return P;
+}
+
+template <class Sh>
+__device__ __forceinline__ void walk_finish(Sh& S, int P, int cmin, int n_flux) {
+  if (threadIdx.x >= P) return;
+  const int c = cmin + threadIdx.x;
+  if (c >= n_flux) return;
+  const int kw = kWarps / P;
+  double s0 = 0.0, s1 = 0.0;
+  for (int h = 0; h < kw; ++h) {
+    s0 += S.wpart[threadIdx.x * kw + h][0];
+    s1 += S.wpart[threadIdx.x * kw + h][1];
+  }
+  S.acc.v[0][c] += s0;
+  S.acc.v[1][c] += s1;
+}
+
+// Counters between blocks (K2-K7's flux protocols).
+// Thread 0 waits until *c >= target, polling every kPollNs at most (the
+// pause keeps hundreds of polling blocks from crowding out the counters'
+// updates in L2); then the block goes on.
+constexpr int kPollNs = 64;
+constexpr int kCountStride = 32;    // ints between counters: one 128-byte line each
+
+// A device-scope acquire-release fence: with the block barrier before it,
+// it orders every write of the block before thread 0's next counter update
+// (release); after a counter read, every later read of the block after it
+// (acquire).  Lighter than __threadfence()'s sequentially consistent fence.
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_count(const int* c, int target) {
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<const volatile int*>(c) < target) __nanosleep(kPollNs);
+    fence_acq_rel();
+  }
+  __syncthreads();
+}
+
+// Adds v to the counter after every write of the block (release).
+__device__ __forceinline__ void count_up(int* c, int v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_acq_rel();
+    atomicAdd(c, v);
   }
 }
 

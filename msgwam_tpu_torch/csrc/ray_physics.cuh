@@ -1,10 +1,9 @@
 // Per-ray physics of the hprop=False right-hand side, and the per-tile
-// height window, shared by the fused RHS kernels (K2, rhs_fused.cu;
-// K3/K4, rhs_windowed.cu) and the whole-run kernel (K5-K7,
-// step_resident.cu).  The terms a ray's frozen fields fix (RayInv) are
-// split from those of each stage (stage_terms), so that the whole-run
-// kernel computes them once per launch; the split keeps every expression's
-// order of operations.
+// height window, shared by the per-stage kernels (K2-K4, rhs_windowed.cu)
+// and the whole-run kernel (K5-K7, step_resident.cu).  The terms a ray's
+// frozen fields fix (RayInv) are split from those of each stage
+// (stage_terms), so that the whole-run kernel computes them once per
+// launch; the split keeps every expression's order of operations.
 //
 // The physics is the Pallas kernels' (msgwam_tpu/ops/rhs_pallas.py:_kernel
 // and its copies in rhs_pallas_windowed.py and step_pallas.py), written

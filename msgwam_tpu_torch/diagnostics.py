@@ -6,9 +6,12 @@ layout a kernel would run in its first window, its second tier or at full
 width.  It mirrors **the port's** kernels, whose tile is 256 rays (the
 TPU's was 8192) and whose rule is :mod:`.ops.ray_physics`' own, so the
 mirror and the kernels' twins share one implementation.  A tile of no
-active ray never falls back.  And :func:`internal_ray_layout`, the layout
-the launch-sorted K6 saw.  The rest of the JAX module (wave-action
-histories, the reference window diagnostics) is ROADMAP queue 1, item 7.
+active ray never falls back.  :func:`stage_partials`: the flux partials
+each block of the per-stage kernels K2-K4 publishes under their block plan
+(:func:`msgwam_tpu_torch.ops.ray_physics.stage_plan`, the plan the kernels
+and their twins take).  And :func:`internal_ray_layout`, the layout the
+launch-sorted K6 saw.  The rest of the JAX module (wave-action histories,
+the reference window diagnostics) is ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -91,3 +94,46 @@ def window_fallback_stats(dt, state, statics, bg, cfg,
     n_fallback = (tier != 1).sum()
     return WindowFallbackStats(n_blocks, n_fallback, n_fallback / n_blocks,
                                (tier == 0).sum() / n_blocks)
+
+
+class StagePartials(NamedTuple):
+    """The flux partials of one launch of K2-K4."""
+
+    plan: ray_physics.StagePlan
+    lo: torch.Tensor        # (blocks,) first cell the block's tiles touch
+    hi: torch.Tensor        # (blocks,) one past the last; lo = hi = 0: none
+    entries: torch.Tensor   # partials published: 2 * sum(hi - lo)
+
+
+def stage_partials(dt, state, statics, bg, cfg,
+                   sms: int = ray_physics.H100_SMS) -> StagePartials:
+    """Which flux partials the blocks of K2-K4 would publish for the
+    current ray layout on a card of ``sms`` SMs: block ``b`` of the plan
+    owns tiles ``b, b + blocks, ...`` and publishes the cells its live rays'
+    deposit spans touch, which the kernel's reducers then read; the other
+    entries are exact zeros that they skip."""
+    params, (dt, bvf, _, _), tables = rhs_cuda.prepare_inputs(
+        dt, state, statics, bg, cfg)
+    n_tab = tables[2].shape[0]
+    n = state.rays.r.shape[0]
+    rt = ray_physics.ray_terms(rhs_cuda.ray_fields(state, statics),
+                               statics.active,
+                               ray_physics.geometry(params, n_tab), dt, bvf)
+    plan = ray_physics.stage_plan(n, n_tab - 1, sms)
+    big = 1 << 30
+    lo = torch.where(rt.live, rt.nlow, big)
+    hi = torch.where(rt.live, rt.nup, -1)
+    pad = -n % ray_physics.TILE
+    lo = torch.nn.functional.pad(lo, (0, pad), value=big)
+    hi = torch.nn.functional.pad(hi, (0, pad), value=-1)
+    lo = lo.view(-1, ray_physics.TILE).amin(dim=1)
+    hi = hi.view(-1, ray_physics.TILE).amax(dim=1)
+    owner = ray_physics.tile_blocks(n, plan).to(lo.device)
+    b_lo = torch.full((plan.blocks,), big, dtype=torch.int64, device=lo.device)
+    b_hi = torch.full((plan.blocks,), -1, dtype=torch.int64, device=lo.device)
+    b_lo = b_lo.scatter_reduce(0, owner, lo, "amin")
+    b_hi = b_hi.scatter_reduce(0, owner, hi, "amax")
+    empty = b_hi <= b_lo
+    b_lo = torch.where(empty, 0, b_lo)
+    b_hi = torch.where(empty, 0, b_hi)
+    return StagePartials(plan, b_lo, b_hi, 2 * (b_hi - b_lo).sum())

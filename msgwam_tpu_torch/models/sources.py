@@ -18,7 +18,8 @@ from ..config import GridConfig, ModelConfig
 from ..constants import ROT_EARTH
 from ..ops.dispersion import omega
 from ..ops.interp import grid_interp
-from ..state import Background, RayState, RayStatics, State, coriolis, torch_dtype
+from ..state import (Background, RayState, RayStatics, State, coriolis,
+                     default_device, torch_dtype)
 
 
 def wave_packet_ic(
@@ -41,8 +42,10 @@ def wave_packet_ic(
     the static-instability threshold under a Gaussian envelope.
 
     Built with host NumPy, as in the JAX package, so that it is bitwise
-    the reference's; only the result goes to ``device``.
+    the reference's; only the result goes to ``device``: the card unless
+    another device is given (:func:`msgwam_tpu_torch.state.default_device`).
     """
+    device = default_device(device)
     k_abs = 2.0 * math.pi / wavelength_h
     direction = math.radians(direction_deg)
     ones = np.ones((n_ray,))

@@ -7,7 +7,10 @@ mirror :mod:`msgwam_tpu_torch.diagnostics`.
 Each function computes what its CUDA namesake computes, in the same order
 of operations, in the dtype of its inputs (float32 to hold a kernel to it,
 float64 for an oracle).  The deposit is a dense ``(n, n_cells)`` weight
-matrix with float64-combined block partials.
+matrix with float64-combined block partials; for the per-stage kernels
+K2-K4 they are summed by those kernels' block plan and order
+(:func:`stage_plan`, :func:`sum_blocks`), and :func:`wind_stage` is K4's
+update of the wind.
 
 The window rule (``msgwam_tpu/ops/rhs_pallas_windowed.py:124-147``): the
 rays of a tile of :data:`TILE` rays touch cells ``[lo, hi)``; the window
@@ -202,9 +205,64 @@ def ray_window(lo, hi, c_pad: int, w1: int, w2: int):
     return tier, RayWindow(base[tile_of], width[tile_of], c_pad)
 
 
-def deposit(rt: RayTerms, g: Geometry):
-    """The ``(2, n_flux)`` flux: a dense overlap-weight matrix, block
-    partials and a float64 combination."""
+class StagePlan(NamedTuple):
+    """The block plan of the per-stage kernels K2-K4
+    (``csrc/rhs_windowed.cu:msgwam_rhs_plan``)."""
+
+    blocks: int      # block b owns tiles b, b + blocks, ...
+    reducers: int    # the last blocks to arrive, which sum the flux
+
+
+STAGE_BLOCKS_PER_SM = 4    # kStageBlocksPerSm
+MAX_REDUCERS = 256         # kMaxReducers
+H100_SMS = 132             # an H100 SXM's SMs
+
+
+def stage_plan(n: int, n_flux: int, sms: int = H100_SMS) -> StagePlan:
+    """The plan of K2-K4 for ``n`` rays on a card of ``sms`` SMs: one block
+    per 256-ray tile up to 4 per SM, and one reducer per wind cell
+    (``n_flux + 1``), at most 256 and at most the blocks.  The kernels, their twins
+    (:func:`deposit`) and :mod:`msgwam_tpu_torch.diagnostics` take the plan
+    from here."""
+    blocks = min(-(-n // TILE), STAGE_BLOCKS_PER_SM * sms)
+    return StagePlan(blocks, min(blocks, n_flux + 1, MAX_REDUCERS))
+
+
+def tile_blocks(n: int, plan: StagePlan) -> torch.Tensor:
+    """The block of each 256-ray tile under ``plan``."""
+    return torch.arange(-(-n // TILE)) % plan.blocks
+
+
+GROUP = 64    # threads that sum one flux entry in a reducer
+
+
+def sum_blocks(parts: torch.Tensor) -> torch.Tensor:
+    """The kernels' sum of ``(blocks, entries)`` float64 block partials,
+    per entry, as a reducer of ``csrc/rhs_windowed.cu`` adds them with a
+    group of 64 threads: thread ``t`` adds blocks ``t, t + 64, ...`` in
+    order, each of the group's two warps combines its 32 thread sums by a
+    butterfly (xor 16, 8, 4, 2, 1), and the two warp sums are added.  A
+    block that did not touch a cell adds an exact zero there."""
+    nb = parts.shape[0]
+    parts = F.pad(parts, (0, 0, 0, -nb % GROUP)).view(-1, GROUP, parts.shape[1])
+    lanes = parts[0]
+    for k in range(1, parts.shape[0]):
+        lanes = lanes + parts[k]
+    lanes = lanes.view(2, 32, -1)
+    idx = torch.arange(32, device=parts.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[0, 0] + lanes[1, 0]
+
+
+def deposit(rt: RayTerms, g: Geometry, plan: Optional[StagePlan] = None):
+    """The ``(2, n_flux)`` flux from a dense overlap-weight matrix.
+
+    Without ``plan`` (K5's twin): block partials of 8192 rays and a
+    float64 combination.  With the per-stage kernels' ``plan``: each
+    ray's products ``overlap * value`` in the input dtype, summed in
+    float64 per block of the plan (block ``b`` holds tiles ``b, b +
+    blocks, ...``), the blocks summed as :func:`sum_blocks`."""
     dtype = rt.r_lo.dtype
     c = torch.arange(g.n_flux, device=rt.r_lo.device)
     cf = c.to(dtype)
@@ -214,18 +272,48 @@ def deposit(rt: RayTerms, g: Geometry):
     w = torch.abs(torch.minimum(face_hi, rt.r_up[:, None])
                   - torch.maximum(face_lo, rt.r_lo[:, None]))
     w = torch.where(in_span, w, torch.zeros_like(w))
-    return _reduce_partials(block_partials(torch.stack([rt.fvk, rt.fvl]), w),
-                            "f64", dtype)
+    if plan is None:
+        return _reduce_partials(block_partials(torch.stack([rt.fvk, rt.fvl]), w),
+                                "f64", dtype)
+    n = w.shape[0]
+    prod = torch.cat([w * rt.fvk[:, None], w * rt.fvl[:, None]], dim=1)
+    prod = F.pad(prod.to(torch.float64), (0, 0, 0, -n % TILE))
+    tiles = prod.view(-1, TILE, prod.shape[1]).sum(dim=1)
+    per_block = torch.zeros((plan.blocks, tiles.shape[1]), dtype=torch.float64,
+                            device=tiles.device)
+    per_block.index_add_(0, tile_blocks(n, plan).to(tiles.device), tiles)
+    return sum_blocks(per_block).to(dtype).view(2, g.n_flux)
+
+
+def wind_stage(flux, u, v, qu, qv, pg, rhobar, dzf, ff0, dt, cc, bc,
+               first: bool):
+    """The wind's RK3 stage update from a stage's ``(2, n_flux)`` flux, in
+    the order of operations of K4's last reducer: the flux padded by copy
+    at both ends, its divergence over ``dzf``, Coriolis ``ff0``, the
+    pressure gradient over ρ̄, then the q/y update.  Returns ``(u, v, qu,
+    qv)``."""
+    n_flux = flux.shape[1]
+    c = torch.arange(n_flux + 1, device=flux.device)
+    up = torch.clamp(c, max=n_flux - 1)
+    dn = torch.clamp(c - 1, min=0)
+    gx = (flux[0, up] - flux[0, dn]) / dzf
+    gy = (flux[1, up] - flux[1, dn]) / dzf
+    du = ff0 * v - (pg[0] + gx) / rhobar
+    dv = -ff0 * u - (pg[1] + gy) / rhobar
+    u2, qu = rk3_stage(du, u, qu, dt, cc, bc, first)
+    v2, qv = rk3_stage(dv, v, qv, dt, cc, bc, first)
+    return u2, v2, qu, qv
 
 
 def fused(params, scalars, tables, fields, act, online: bool, faithful: bool,
-          window=None):
+          window=None, plan: Optional[StagePlan] = None):
     """The fused RHS of one evaluation: ``(tendencies, flux, tiers)``.
 
     ``scalars`` is ``(dt, bvf, kappa, f0)``, ``tables`` ``(du_dz, dv_dz,
     rhobar)``.  ``window`` is ``None`` for the full width (K2, ``tiers``
     is then ``None``) or ``(c_pad, w1, w2)`` for the per-tile window of
-    K3-K5."""
+    K3-K5.  ``plan``: the per-stage kernels' block plan for the flux's sum
+    (:func:`deposit`)."""
     dt, bvf, kappa, f0 = scalars
     du_dz, dv_dz, rhobar = tables
     g = geometry(params, rhobar.shape[0])
@@ -239,4 +327,4 @@ def fused(params, scalars, tables, fields, act, online: bool, faithful: bool,
     rho = lookup(rhobar, rt.qr, win) if online else None
     tend = tendencies(fields, act, rt, du, dv, rho, dt, bvf, kappa, f0,
                       online, faithful)
-    return tend, deposit(rt, g), tiers
+    return tend, deposit(rt, g, plan), tiers

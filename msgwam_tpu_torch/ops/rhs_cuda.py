@@ -1,12 +1,13 @@
 """K2: the fused ``hprop=False`` right-hand side as a hand-written Hopper
-kernel.
+kernel, and the launch plumbing K2-K4 share.
 
 Replaces ``msgwam_tpu/ops/rhs_pallas.py`` (``_kernel``, entry points
 ``_rhs_fused_call``, ``prepare_inputs`` and ``rhs_fused``), reached through
 ``rhs_backend="pallas", window_cells=0``.  The CUDA source is
-``csrc/rhs_fused.cu``; the per-ray physics is ``csrc/ray_physics.cuh``
-(shared with K3-K5; its twin is :mod:`.ray_physics`), the flux deposit
-``csrc/deposit.cuh`` (shared with K1).
+``csrc/rhs_windowed.cu``: K2 is the per-stage template of K3/K4 with the
+window compiled out.  The per-ray physics is ``csrc/ray_physics.cuh``
+(shared with K3-K7; its twin is :mod:`.ray_physics`), the flux deposit
+``csrc/deposit.cuh`` (shared with K1 and K5-K7).
 
 Per ray, in one pass: cg_r (with the ray's own ``phi``), the shears at
 ``r`` and ρ̄ at ``r + cg_r·dt`` by two-point interpolation from tables in
@@ -18,30 +19,40 @@ dens/r/m tendencies, and the deposit of the pseudo-momentum flux.
 What bounds it on the H100: 57 B per ray per RHS (11 f32 fields and a
 mask byte in, 3 f32 tendencies out), 57 MB at 1e6 rays, ~17 µs at
 3.35 TB/s; ~100 flops per ray is far below the compute roofline, so it
-should be bound by memory.  One ray per thread, coalesced reads,
-intermediates in registers, tables in shared memory, float64 deposit
-partials combined in a fixed order (the TPU kernel's cross-tile Kahan sum).
+should be bound by memory.  One ray per thread, a persistent grid whose
+blocks copy their next tile in while they compute, tables in shared
+memory built from the wind on the card, float64 deposit partials summed in
+a fixed order by the kernel's last blocks (the TPU kernel's cross-tile
+Kahan sum): one launch.
 
 :func:`rhs_fused` launches the kernel for CUDA tensors and runs the plain
 twin :func:`rhs_fused_reference` for CPU tensors; ``LAUNCHES`` counts
-kernel launches.  Like the JAX module, this one also holds the window
-widths of the windowed kernels K3-K5: :func:`resolve_window_cells`,
-:func:`resolve_champion` and :func:`apply_champion`.
+kernel launches.  :func:`inputs` builds what a call launches with (host
+scalars, window, background, fields) once per call, :func:`scratch` the
+flux, the partials and the block ranges for the card's plan
+(:func:`device_plan`, mirrored by :func:`.ray_physics.stage_plan`), and
+:func:`counters` the kernels' two arrival counters.  Like the JAX
+module, this one also holds the window widths of the windowed kernels
+K3-K5: :func:`resolve_window_cells`, :func:`resolve_champion` and
+:func:`apply_champion`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from ..constants import ROT_EARTH
-from ..state import RayStatics, State
+from ..state import RayStatics, State, coriolis
 from . import ray_physics
-from .projection_cuda import n_blocks_for
 
 LAUNCHES = 0
 
-MAX_TABLE = 1025     # csrc/rhs_fused.cu kMaxTable: cell centers
+MAX_TABLE = 1025     # csrc/deposit.cuh kMaxCells + 1: cell centers
 WINDOW_FLOOR = 16    # the narrowest window of K3-K5, in cells
 
 
@@ -128,6 +139,110 @@ def prepare_inputs(dt, state, statics, bg, cfg):
     return params, scalars, (du_dz, dv_dz, bg.rhobar.to(dtype))
 
 
+def window_for(cfg, n_tab: int) -> tuple:
+    """``(c_pad, w1, w2)`` of the windowed kernels for ``n_tab`` centers."""
+    c_pad = c_pad_for(n_tab)
+    return (c_pad, *resolve_window_cells(cfg, c_pad))
+
+
+@functools.lru_cache(maxsize=16)
+def _f0(phi0: float) -> float:
+    """The rays' ``f0 = 2Ω sin(phi0)``, evaluated in float32 as
+    :func:`prepare_inputs` does."""
+    return float(2.0 * ROT_EARTH * torch.sin(torch.tensor(phi0,
+                                                          dtype=torch.float32)))
+
+
+class Inputs(NamedTuple):
+    """What one call launches with, built once per call: the host scalars
+    ``(dt, bvf, kappa, f0, ff0)`` (``ff0`` the wind's Coriolis parameter,
+    ``coriolis(phi0)``), the window ``(c_pad, w1, w2)``, the background,
+    the 11 ray fields, the mask and the flags."""
+
+    scalars: tuple
+    window: tuple
+    bg: object
+    fields: tuple
+    active: torch.Tensor
+    online: bool
+    faithful: bool
+    prognostic: bool
+
+
+def inputs(dt, state, statics, bg, cfg) -> Inputs:
+    """The :class:`Inputs` of a checked float32 state."""
+    if cfg.hprop:
+        raise ValueError("the fused kernels support hprop=False only")
+    return Inputs((float(dt), float(cfg.bvf), float(cfg.kappa), _f0(cfg.phi0),
+                   coriolis(cfg.phi0)),
+                  window_for(cfg, bg.centers.shape[0]), bg,
+                  ray_fields(state, statics), statics.active,
+                  bool(cfg.saturate_online), bool(cfg.faithful_saturation),
+                  bool(cfg.prognostic_mean))
+
+
+def device_plan(n: int, n_flux: int, device) -> ray_physics.StagePlan:
+    """The kernels' plan on ``device`` (the card's own SM count)."""
+    return _device_plan(n, n_flux, torch.device(device).index
+                        if torch.device(device).index is not None
+                        else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(n, n_flux, index) -> ray_physics.StagePlan:
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        _build.check(_build.library().msgwam_rhs_plan(
+            n, n_flux, ctypes.addressof(out)), "msgwam_rhs_plan")
+    return ray_physics.StagePlan(out[0], out[1])
+
+
+class Counters:
+    """The kernels' two arrival counters on one device and stream, each on a
+    128-byte line, zeroed once here: launches alternate between them
+    (``parity``, flipped after each launch), and each launch zeroes the one
+    it does not use, which the next will."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(64, dtype=torch.int32, device=device)
+        self.parity = 0
+
+    def launched(self) -> None:
+        self.parity ^= 1
+
+
+_COUNTERS = {}
+
+
+def counters(device) -> Counters:
+    """The :class:`Counters` of ``device``'s current stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = Counters(device)
+    return _COUNTERS[key]
+
+
+class Scratch(NamedTuple):
+    """A launch's scratch: the flux, the block partials (entry-major) and
+    the blocks' cell ranges; and the plan they are sized for."""
+
+    plan: ray_physics.StagePlan
+    flux: torch.Tensor
+    partials: torch.Tensor
+    ranges: torch.Tensor
+
+
+def scratch(n: int, n_tab: int, device) -> Scratch:
+    """The scratch of one call of ``n`` rays on ``n_tab`` centers: new
+    buffers from the allocator's cache, no kernel."""
+    plan = device_plan(n, n_tab - 1, device)
+    return Scratch(plan,
+                   torch.empty((2, n_tab - 1), dtype=torch.float32, device=device),
+                   torch.empty((2 * (n_tab - 1), plan.blocks), dtype=torch.float64,
+                               device=device),
+                   torch.empty(plan.blocks, dtype=torch.int32, device=device))
+
+
 def ray_fields(state, statics):
     r = state.rays
     return (r.dens, r.r, r.dr, r.k, r.l, r.m, r.dm, r.phi,
@@ -161,8 +276,18 @@ def check_inputs(state, statics, bg, name: str = "rhs_fused",
             or not act.is_contiguous():
         raise ValueError(f"{name}: active must be a contiguous bool "
                          f"({n},) tensor on {device}")
-    if not 3 <= bg.centers.shape[0] <= max_cells:
+    n_tab = bg.centers.shape[0]
+    if not 3 <= n_tab <= max_cells:
         raise ValueError(f"{name}: 3 to {max_cells} cells supported")
+    for what, x, shape in (("mean.u", state.mean.u, (n_tab,)),
+                           ("mean.v", state.mean.v, (n_tab,)),
+                           ("bg.faces", bg.faces, (n_tab + 1,)),
+                           ("bg.rhobar", bg.rhobar, (n_tab,)),
+                           ("bg.pressure_gradient", bg.pressure_gradient,
+                            (2, n_tab))):
+        if x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {shape} "
+                             f"tensor")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {device}")
 
@@ -174,52 +299,51 @@ def rhs_fused(dt, state, statics, bg, cfg):
     forward only."""
     _build.forward_only("rhs_fused", state, statics, bg)
     check_inputs(state, statics, bg)
-    device = state.rays.r.device
-    if device.type == "cpu":
+    if state.rays.r.device.type == "cpu":
         return rhs_fused_reference(dt, state, statics, bg, cfg)
-    return launch(*prepare_inputs(dt, state, statics, bg, cfg),
-                  ray_fields(state, statics), statics.active,
-                  cfg.saturate_online, cfg.faithful_saturation)
+    return launch(inputs(dt, state, statics, bg, cfg), *state.mean)
 
 
-def launch(params, scalars, tables, fields, active, saturate_online: bool,
-           faithful: bool):
+def launch(inp: Inputs, u, v, work: Scratch = None):
     """One launch of the kernel on inputs that :func:`rhs_fused` has
-    checked and :func:`prepare_inputs` has built (no checks here): returns
-    the tendencies and the flux as :func:`rhs_fused` does."""
+    checked (no checks here), with the wind ``u``, ``v``: returns the
+    tendencies and the flux as :func:`rhs_fused` does."""
     global LAUNCHES
-    dt, bvf, kappa, f0 = scalars
-    du_dz, dv_dz, rhobar = tables
+    dt, bvf, kappa, f0, _ = inp.scalars
+    bg = inp.bg
+    fields = inp.fields
     device = fields[0].device
     n = fields[0].shape[0]
-    n_tab = rhobar.shape[0]
-    nb = n_blocks_for(n)
+    n_tab = bg.centers.shape[0]
+    work = work or scratch(n, n_tab, device)
     dens_st, drr_st, dmm_st = (torch.empty_like(fields[0]) for _ in range(3))
-    flux = torch.empty((2, n_tab - 1), dtype=torch.float32, device=device)
-    partials = torch.empty((nb, 2, n_tab - 1), dtype=torch.float64,
-                           device=device)
+    cnt = counters(device)
     err = _build.library().msgwam_rhs_fused(
-        params.data_ptr(), dt, bvf, kappa, f0,
-        du_dz.data_ptr(), dv_dz.data_ptr(), rhobar.data_ptr(), n_tab,
-        *(f.data_ptr() for f in fields), active.data_ptr(), n,
+        bg.centers.data_ptr(), bg.faces.data_ptr(), u.data_ptr(), v.data_ptr(),
+        bg.rhobar.data_ptr(), n_tab, dt, bvf, kappa, f0,
+        *(f.data_ptr() for f in fields), inp.active.data_ptr(), n,
         dens_st.data_ptr(), drr_st.data_ptr(), dmm_st.data_ptr(),
-        flux.data_ptr(), partials.data_ptr(), nb,
-        int(bool(saturate_online)), int(bool(faithful)),
+        work.flux.data_ptr(), work.partials.data_ptr(), work.ranges.data_ptr(),
+        cnt.buf.data_ptr(), cnt.parity, work.plan.blocks, work.plan.reducers,
+        int(inp.online), int(inp.faithful),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "msgwam_rhs_fused")
+    cnt.launched()
     LAUNCHES += 1
-    return {"dens": dens_st, "r": drr_st, "m": dmm_st}, flux
+    return {"dens": dens_st, "r": drr_st, "m": dmm_st}, work.flux
 
 
 def rhs_fused_reference(dt, state: State, statics: RayStatics, bg, cfg):
     """Plain PyTorch twin of the K2 kernel, in the state's own dtype
     (float32 for the kernel's arithmetic, float64 for an oracle): the
     per-ray physics of :mod:`.ray_physics` at full width, a dense
-    ``(n, n_cells)`` deposit weight matrix, block partials and a float64
-    combination."""
+    ``(n, n_cells)`` deposit weight matrix, and the flux summed by the
+    kernel's block plan (the H100's)."""
     params, scalars, tables = prepare_inputs(dt, state, statics, bg, cfg)
+    fields = ray_fields(state, statics)
     tend, flux, _ = ray_physics.fused(
-        params, scalars, tables, ray_fields(state, statics), statics.active,
-        cfg.saturate_online, cfg.faithful_saturation)
+        params, scalars, tables, fields, statics.active, cfg.saturate_online,
+        cfg.faithful_saturation,
+        plan=ray_physics.stage_plan(fields[0].shape[0], bg.centers.shape[0] - 1))
     return tend, flux

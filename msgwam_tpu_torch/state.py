@@ -102,6 +102,21 @@ def coriolis(phi, dtype=None):
     return 2.0 * ROT_EARTH * math.sin(phi)
 
 
+def default_device(device=None) -> torch.device:
+    """The device a builder puts its tensors on: ``device`` when given,
+    else the card.  Without one the call fails here, naming the missing
+    card, instead of going on quietly on the CPU: a caller who wants the
+    CPU (the tests do) passes ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: msgwam_tpu_torch builds its tensors on the card "
+            "unless the caller asks for another device; pass device='cpu' to "
+            "run on the CPU")
+    return torch.device("cuda")
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -124,8 +139,10 @@ def make_background(
     ``msgwam_tpu.state.make_background`` does: NumPy's ``exp`` and
     ``linspace`` are the reference's, and device transcendentals that
     differ by an ulp seed trajectory divergence through the saturation
-    clamps.  Only the finished arrays go to ``device``.
+    clamps.  Only the finished arrays go to ``device``: the card unless
+    another device is given (:func:`default_device`).
     """
+    device = default_device(device)
     faces_np = grid_cfg.faces()
     centers_np = grid_cfg.centers()
     if cfg.boussinesq:
@@ -208,10 +225,12 @@ def from_numpy(tree, device=None, dtype=None):
 
     ``tree`` is a ``RayState``/``MeanState``/``State``/``RayStatics``/
     ``Background`` of either package (matched by type name), a plain tuple
-    of such trees, or a single array.  Float leaves are cast to ``dtype``
-    (default: keep their own); bool leaves stay bool.  Python floats
-    (structural zeros) pass through unchanged.
+    of such trees, or a single array, on ``device``: the card unless
+    another device is given (:func:`default_device`).  Float leaves are cast
+    to ``dtype`` (default: keep their own); bool leaves stay bool.  Python
+    floats (structural zeros) pass through unchanged.
     """
+    device = default_device(device)
     dtype = None if dtype is None else torch_dtype(dtype)
     if isinstance(tree, tuple):
         children = [from_numpy(c, device, dtype) for c in tree]

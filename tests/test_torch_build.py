@@ -18,9 +18,9 @@ from msgwam_tpu_torch.ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed,
 from msgwam_tpu_torch.parallel import stack_ensemble
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
-KERNEL_ENTRIES = {"msgwam_project", "msgwam_rhs_fused", "msgwam_rhs_windowed",
-                  "msgwam_step_resident_plan", "msgwam_step_resident",
-                  "msgwam_step_stream"}
+KERNEL_ENTRIES = {"msgwam_project", "msgwam_rhs_plan", "msgwam_rhs_fused",
+                  "msgwam_rhs_windowed", "msgwam_step_resident_plan",
+                  "msgwam_step_resident", "msgwam_step_stream"}
 
 
 def _declarations():
@@ -58,7 +58,7 @@ def _bench_inputs(n=300):
     uu = mtt.velocities_sine_homogeneous(
         torch.tensor(gc.centers(), dtype=torch.float32), cfg)
     bg = mtt.make_background(gc, cfg, uu, torch.zeros_like(uu),
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     rays, statics = mtt.gaussian_spectrum_source(cfg, bg, n, dtype=torch.float32)
     state = mtt.State(rays, mtt.MeanState(uu, torch.zeros_like(uu)))
     return cfg, bg, state, statics

@@ -61,7 +61,8 @@ def _jax_members(n=N, **cfg_kw):
 def _members(**cfg_kw):
     cfg, bg, members = _jax_members(**cfg_kw)
     tcfg = mtt.ModelConfig(**dataclasses.asdict(cfg))
-    return tcfg, mtt.from_numpy(bg), [mtt.from_numpy(m) for m in members]
+    return (tcfg, mtt.from_numpy(bg, device="cpu"),
+            [mtt.from_numpy(m, device="cpu") for m in members])
 
 
 def _tides(cfg, scales):
@@ -127,7 +128,7 @@ def test_k7_matches_jax_ensemble():
                              wind_fn=lambda t: (tidal_shear(cj, t, jcfg),
                                                 jnp.zeros_like(cj)))
     cfg = mtt.ModelConfig(**dataclasses.asdict(jcfg))
-    states, statics, bg = mtt.from_numpy((jstates, jstatics, jbg))
+    states, statics, bg = mtt.from_numpy((jstates, jstatics, jbg), device="cpu")
     wind = _tides(cfg, (1.0,))[0]
     got, gst, gmh = simulate_streaming_ensemble(
         states, statics, bg, cfg, mtt.RunConfig(dt=120.0, n_steps=4, save_every=2),

@@ -105,7 +105,7 @@ def test_cull_and_relaunch_match_jax():
                             rr_mm_area=rng.uniform(0, 1, n),
                             active=rng.uniform(size=n) < 0.8)
     jstate = mt.State(rays, state.mean)
-    tstate, tstatics, tbg = mtt.from_numpy((jstate, statics, bg))
+    tstate, tstatics, tbg = mtt.from_numpy((jstate, statics, bg), device="cpu")
     with jax.debug_nans(False):
         _, jst = mt.cull(jstate, statics, bg, cfg)
     _, tst = mtt.cull(tstate, tstatics, tbg, _tcfg(cfg))
@@ -115,7 +115,7 @@ def test_cull_and_relaunch_match_jax():
     src = jax.tree.map(lambda x: x[::-1].copy(), (rays, statics))
     with jax.debug_nans(False):
         jrel = mt.relaunch(jstate, jst, src)
-    trel = mtt.relaunch(tstate, tst, mtt.from_numpy(src))
+    trel = mtt.relaunch(tstate, tst, mtt.from_numpy(src, device="cpu"))
     for x, y in zip((*jrel[0].rays, *jrel[1]), (*trel[0].rays, *trel[1])):
         np.testing.assert_array_equal(y.numpy(), np.asarray(x))
 
@@ -129,7 +129,7 @@ def test_keyed_spectrum_distribution():
     cfg = mtt.REFERENCE_RUN_CONFIG.replace(saturate_online=True)
     gc = mtt.GridConfig()
     uu = mtt.velocities_sine_homogeneous(torch.tensor(gc.centers()), cfg)
-    bg = mtt.make_background(gc, cfg, uu, torch.zeros_like(uu))
+    bg = mtt.make_background(gc, cfg, uu, torch.zeros_like(uu), device="cpu")
     n, kw = 100_000, dict(z_launch=40e3, dz_launch=500.0, m_halfwidth=2.0,
                           m_center=-2.0 * np.pi / 3e3)
     m_sigma = 2.0 * np.pi / 20e3
@@ -201,7 +201,7 @@ def test_path_c_matches_jax(case, dtype):
         state, statics = _shuffled(state, statics)
     run = mt.RunConfig(dt=120.0, n_steps=N_STEPS, save_every=3)
     jkw, tkw = {}, {}
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     if opts.get("wind") == "scalar":
         jkw["wind_fn"] = lambda t: (0.5 + 0.0 * t, 0.0)
         tkw["wind_fn"] = lambda t: (0.5 + 0.0 * t, 0.0)
@@ -239,7 +239,7 @@ def test_keyed_source_matches_jax():
     key, draws = jax.random.PRNGKey(7), []
     for _ in range(N_STEPS):
         key, sub = jax.random.split(key)
-        draws.append(mtt.from_numpy(src_fn(sub)))
+        draws.append(mtt.from_numpy(src_fn(sub), device="cpu"))
     handed = iter(draws)
     gen = torch.Generator().manual_seed(0)
 
@@ -247,7 +247,7 @@ def test_keyed_source_matches_jax():
         assert g is gen
         return next(handed)
 
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     assert _culls_fire(s, st, b, _tcfg(cfg), _trun(run)), "culls must fire"
     for every in (1, 2):
         handed = iter(draws)

@@ -73,7 +73,7 @@ def test_k5_matches_msgwam_tpu(mode):
     history frames and the pre-saturation ``dens_prop``."""
     cfg, bg, state, statics = _setup(**MODES[mode])
     want, _, whist = jax_resident(state, statics, bg, cfg, RUN)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     got, gst, hist = mtt.simulate_resident(s, st, b, _tcfg(cfg), TRUN)
     for f in ("dens", "r", "m"):
         assert _rel(getattr(want.rays, f), getattr(got.rays, f)) < TOL, f
@@ -96,7 +96,7 @@ def test_k5_offline_clamp_fires():
     """The in-kernel offline cap changes the density: an effectively
     uncapped run (kappa huge) ends elsewhere."""
     cfg, bg, state, statics = _setup(dens_scale=50.0, saturate_online=False)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg = _tcfg(cfg)
     capped, _, hist = mtt.simulate_resident(s, st, b, tcfg, TRUN)
     free, _, _ = mtt.simulate_resident(s, st, b, tcfg.replace(kappa=1e9), TRUN)
@@ -106,7 +106,7 @@ def test_k5_offline_clamp_fires():
 
 def test_k5_include_t0_and_observe():
     cfg, bg, state, statics = _setup(n=300, pad_to=512)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=4, save_every=2)
     final, _, hist = mtt.simulate_resident(s, st, b, tcfg, run, include_t0=True)
     assert hist[0].rays.r.shape == (3, 512)      # t0 + 2 save points
@@ -129,7 +129,7 @@ def test_k5_include_t0_and_observe():
 
 def test_k5_guard_rails():
     cfg, bg, state, statics = _setup(n=300, pad_to=512)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=4, save_every=2)
     with pytest.raises(ValueError, match="hprop"):
         mtt.simulate_resident(s, st, b, tcfg.replace(hprop=True), run)
@@ -141,7 +141,7 @@ def test_k5_guard_rails():
         _, got_st, hist = mtt.simulate_resident(s, st, b, tcfg.replace(**kw), run,
                                                 **over)
         assert step_cuda.LAUNCHES == 0 and hist[1].shape == (2, 512)
-    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
     with pytest.raises(TypeError, match="float32"):
         mtt.simulate_resident(s64, st64, b64, tcfg.replace(dtype="float64"), run)
     with pytest.raises(ValueError, match="divisible"):
@@ -154,7 +154,7 @@ def test_k5_deposit_accuracy_vs_f64_oracle():
     increment is a pure flux observable, within 1e-6 of the float64
     composable path of msgwam_tpu (tests/test_megakernel.py:129-153)."""
     cfg, bg, state, statics = _setup(n=4096, pad_to=4096)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     run = mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)
     got, _, _ = mtt.simulate_resident(s, st, b, _tcfg(cfg), run)
     du32 = got.mean.u.double().numpy() - np.asarray(state.mean.u, np.float64)

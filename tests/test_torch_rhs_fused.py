@@ -64,7 +64,7 @@ def _rel(a, b):
 
 
 def _port(state, statics, bg):
-    return mtt.from_numpy((state, statics, bg))
+    return mtt.from_numpy((state, statics, bg), device="cpu")
 
 
 SAT_MODES = [
@@ -126,7 +126,7 @@ def test_k2_twin_matches_msgwam_tpu_xla(mode):
         assert _rel(getattr(want.rays, f), getattr(got_xla.rays, f)) < TOL
     assert _rel(want.mean.u, got_xla.mean.u) < TOL
     # the float64 twin is the same function at another precision
-    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
     tend64, flux64 = rhs_cuda.rhs_fused_reference(120.0, s64, st64, b64, tcfg)
     assert flux64.dtype == torch.float64
     assert _rel(flux64, flux) < TOL
@@ -137,7 +137,7 @@ def test_pallas_rhs_windowed_raises():
     full-width (K2) and the windowed (K3, the default ``window_cells=-1``)
     route alike, never a silent cast."""
     cfg, tcfg, bg, state, statics = _setup(n=16, pad_to=16)
-    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
     for window_cells in (-1, 0):
         with pytest.raises(TypeError, match="float32"):
             torch_rhs(120.0, s64, st64, b64,
@@ -164,3 +164,19 @@ def test_k2_kernel_matches_twin_on_gpu(cuda_device):
             assert torch.equal(tend[f], tend2[f])
         assert _rel(twin_flux.cpu(), flux.cpu()) < TOL
         assert torch.equal(flux, flux2)
+
+
+@pytest.mark.parametrize("mode", range(len(SAT_MODES)))
+def test_k2_twin_flux_against_its_float64_twin(mode):
+    """On the launch population the float32 twin's flux, each product
+    rounded to float32 and summed in float64 by the kernel's block plan,
+    is within 1e-6 of the float64 twin's maximum (the deposit bar of
+    tests/test_projection.py)."""
+    cfg, tcfg, bg, state, statics = _setup(n=20_000, pad_to=20_480,
+                                           **SAT_MODES[mode])
+    s, st, b = _port(state, statics, bg)
+    _, flux = rhs_cuda.rhs_fused_reference(120.0, s, st, b, tcfg)
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64",
+                                    device="cpu")
+    _, flux64 = rhs_cuda.rhs_fused_reference(120.0, s64, st64, b64, tcfg)
+    assert _rel(flux64, flux) < 1e-6

@@ -58,7 +58,7 @@ def test_fused_step_trajectory_matches_msgwam_tpu():
     run = mt.RunConfig(dt=120.0, n_steps=5, save_every=5)
     want, _, _ = jax.jit(lambda s, st: mt.simulate(s, st, bg, cfgp, run))(
         state, statics)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     got, _, hist = mtt.simulate(s, st, b, _tcfg(cfgp), _trun(run))
     assert got.rays.r.dtype == torch.float32
     assert _rel(want.rays.r, got.rays.r) < 1e-4
@@ -101,7 +101,7 @@ def _reference_experiment(n_steps, flux_bar, field_bar):
     cfg, bg, state, statics = _reference_setup()
     run = mt.RunConfig(dt=120.0, n_steps=n_steps, save_every=10)
     want, wst, whist = mt.simulate(state, statics, bg, cfg, run, include_t0=True)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     got, gst, ghist = mtt.simulate(s, st, b, _tcfg(cfg), _trun(run),
                                    include_t0=True)
     for f in want.rays._fields:
@@ -140,7 +140,7 @@ def test_other_integrators_match(integrator):
     cfg = cfg.replace(integrator=integrator, saturate_online=True)
     run = mt.RunConfig(dt=120.0, n_steps=10, save_every=5)
     want, _, _ = mt.simulate(state, statics, bg, cfg, run)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     got, _, hist = mtt.simulate(s, st, b, _tcfg(cfg), _trun(run))
     assert hist[0].rays.r.shape == (2, 60)
     for f in ("dens", "r", "m"):
@@ -150,7 +150,7 @@ def test_other_integrators_match(integrator):
 
 def test_unported_options_raise_and_inputs_are_validated():
     cfg, bg, state, statics = _reference_setup()
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=2, save_every=1)
     for kw in (dict(remat=True), dict(axis_name="rays")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

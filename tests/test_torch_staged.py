@@ -15,7 +15,7 @@ import torch
 import msgwam_tpu as mt
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch.models import integrate
-from msgwam_tpu_torch.ops import rhs_cuda, rhs_cuda_windowed
+from msgwam_tpu_torch.ops import ray_physics, rhs_cuda, rhs_cuda_windowed
 
 torch.set_num_threads(1)
 
@@ -84,7 +84,7 @@ def test_k4_trajectory_matches_msgwam_tpu(monkeypatch):
     run = mt.RunConfig(dt=120.0, n_steps=4, save_every=4)
     want, _, _ = jax.jit(lambda s, st: mt.simulate(s, st, bg, cfgw, run))(
         state, statics)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     spy = _Spy(monkeypatch)
     got, _, _ = mtt.simulate(s, st, b, _tcfg(cfgw), _trun(run))
     assert spy.calls == {"rk3_step_fused_windowed": 4}
@@ -94,13 +94,35 @@ def test_k4_trajectory_matches_msgwam_tpu(monkeypatch):
     assert got.rays.k is s.rays.k and got.rays.dr is s.rays.dr
 
 
+@pytest.mark.parametrize("prognostic", [True, False])
+@pytest.mark.parametrize("online", [True, False])
+def test_k4_twin_modes_match_msgwam_tpu(online, prognostic):
+    """The K4 twin (the wind updated as the kernel's tail does, the flux
+    summed by the kernel's block plan) against msgwam_tpu's stage-fused
+    step over 4 steps, online and offline saturation, with the
+    prognostic wind and without."""
+    cfg, bg, state, statics = _setup(4000, 8192, spread=(2e3, 12e3),
+                                     saturate_online=online,
+                                     prognostic_mean=prognostic)
+    cfgw = cfg.replace(rhs_backend="pallas", window_cells=-1)
+    run = mt.RunConfig(dt=120.0, n_steps=4, save_every=4)
+    want, _, _ = jax.jit(lambda s, st: mt.simulate(s, st, bg, cfgw, run))(
+        state, statics)
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
+    got, _, _ = mtt.simulate(s, st, b, _tcfg(cfgw), _trun(run))
+    _assert_close(want, got, 5e-5)
+    assert _rel(want.mean.v, got.mean.v) < 5e-5
+    if not prognostic:
+        assert torch.equal(got.mean.u, s.mean.u)
+
+
 @pytest.mark.parametrize("online", [True, False])
 def test_k4_twin_matches_the_generic_step(online):
     """One stage-fused step against the generic RK3 over the same RHS
     (K3's twin), online and offline, and against the composable path."""
     cfg, bg, state, statics = _setup(1500, 2048, saturate_online=online)
     tcfg = _tcfg(cfg.replace(rhs_backend="pallas", window_cells=24))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     fused = rhs_cuda_windowed.rk3_step_fused_windowed(120.0, s, st, b, tcfg)
     twin = rhs_cuda_windowed.rk3_step_fused_windowed_reference(120.0, s, st, b,
                                                                tcfg)
@@ -123,7 +145,7 @@ def test_default_window_slice_matches_msgwam_tpu():
     run = mt.RunConfig(dt=120.0, n_steps=5, save_every=5)
     want, _, whist = jax.jit(lambda s, st: mt.simulate(s, st, bg, cfgp, run))(
         state, statics)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     got, _, hist = mtt.simulate(s, st, b, _tcfg(cfgp), _trun(run))
     assert got.rays.r.dtype == torch.float32
     _assert_close(want, got, 1e-4)
@@ -137,11 +159,11 @@ def test_windowed_route_refuses_float64_and_axis_name():
     ray sharding is not ported."""
     cfg, bg, state, statics = _setup(100, 256)
     run = mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)
-    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
     tcfg = _tcfg(cfg.replace(rhs_backend="pallas", dtype="float64"))
     with pytest.raises(TypeError, match="float32"):
         mtt.simulate(s64, st64, b64, tcfg, run)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     with pytest.raises(NotImplementedError, match="axis_name"):
         integrate.rk3_step(120.0, s, st, b, _tcfg(cfg.replace(
             rhs_backend="pallas")), axis_name="rays")
@@ -152,10 +174,26 @@ def test_rk4_runs_k3_four_times_a_step(monkeypatch):
     evaluations per rk4 step, on the composable path's trajectory."""
     cfg, bg, state, statics = _setup(1500, 2048, integrator="rk4")
     run = mtt.RunConfig(dt=120.0, n_steps=3, save_every=3)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     spy = _Spy(monkeypatch)
     got, _, _ = mtt.simulate(s, st, b, _tcfg(cfg.replace(rhs_backend="pallas")),
                              run)
     assert spy.calls == {"rhs_fused_windowed": 12}
     plain, _, _ = mtt.simulate(s, st, b, _tcfg(cfg), run)
     _assert_close(plain, got, 1e-4)
+
+
+def test_k4_twin_block_plan_changes_only_rounding():
+    """The flux's block plan orders float64 sums only: the twin's step on
+    another card's plan (one SM, four blocks) agrees with the H100's to
+    float32 rounding."""
+    cfg, bg, state, statics = _setup(1500, 2048, spread=(2e3, 30e3))
+    tcfg = _tcfg(cfg.replace(rhs_backend="pallas"))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
+    h100 = rhs_cuda_windowed.rk3_step_fused_windowed_reference(120.0, s, st, b,
+                                                               tcfg)
+    small = ray_physics.stage_plan(2048, 99, sms=1)
+    assert small.blocks == 4
+    other = rhs_cuda_windowed.rk3_step_fused_windowed_reference(
+        120.0, s, st, b, tcfg, plan=small)
+    _assert_close(h100, other, 1e-6)

@@ -51,7 +51,7 @@ def test_make_background_bitwise(boussinesq):
     vv = 0.3 * uu
     a = mt.make_background(gc, cfg, uu, vv)
     b = mtt.make_background(mtt.GridConfig(), mtt.ModelConfig(
-        **dataclasses.asdict(cfg)), torch.tensor(uu), vv)
+        **dataclasses.asdict(cfg)), torch.tensor(uu), vv, device="cpu")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
@@ -61,10 +61,11 @@ def test_wave_packet_ic_bitwise():
     gc = mt.GridConfig()
     uu, vv = _winds(cfg, gc)
     bga = mt.make_background(gc, cfg, uu, vv)
-    bgb = mtt.make_background(mtt.GridConfig(), mtt.REFERENCE_RUN_CONFIG, uu, vv)
+    bgb = mtt.make_background(mtt.GridConfig(), mtt.REFERENCE_RUN_CONFIG, uu, vv,
+                              device="cpu")
     ra, sa = mt.wave_packet_ic(gc, cfg, bga, n_ray=60)
     rb, sb = mtt.wave_packet_ic(mtt.GridConfig(), mtt.REFERENCE_RUN_CONFIG,
-                                bgb, n_ray=60)
+                                bgb, n_ray=60, device="cpu")
     for x, y in zip((*ra, *sa), (*rb, *sb)):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
@@ -75,7 +76,7 @@ def test_gaussian_spectrum_source_matches(dtype):
     gc = mt.GridConfig()
     uu, vv = _winds(cfg, gc)
     bga = mt.make_background(gc, cfg, uu, vv, dtype=getattr(jnp, dtype))
-    bgb = mtt.from_numpy(bga)
+    bgb = mtt.from_numpy(bga, device="cpu")
     kw = dict(z_launch=2000.0, dz_launch=500.0, amplitude_alpha=0.003)
     ra, sa = mt.gaussian_spectrum_source(cfg, bga, 777, dtype=getattr(jnp, dtype),
                                          **kw)
@@ -138,17 +139,17 @@ def test_from_numpy_round_trip():
     rays, statics = mt.wave_packet_ic(gc, cfg, bg, n_ray=60)
     rays, statics = mt.pad_rays(rays, statics, 64)
     state = mt.State(rays, mt.MeanState(jnp.asarray(uu), jnp.asarray(vv)))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     assert isinstance(s, mtt.State) and isinstance(st, mtt.RayStatics)
     assert isinstance(b, mtt.Background) and st.active.dtype == torch.bool
     back = mtt.to_numpy((s, st, b))
     for x, y in zip(jax_leaves((state, statics, bg)), jax_leaves(back)):
         np.testing.assert_array_equal(np.asarray(x), y)
-    s32 = mtt.from_numpy(state, dtype="float32")
+    s32 = mtt.from_numpy(state, dtype="float32", device="cpu")
     assert s32.rays.r.dtype == torch.float32
     # pad_rays of the port pads exactly as msgwam_tpu's
     r0, s0 = mt.wave_packet_ic(gc, cfg, bg, n_ray=60)
-    pr, ps = mtt.pad_rays(*mtt.from_numpy((r0, s0)), 64)
+    pr, ps = mtt.pad_rays(*mtt.from_numpy((r0, s0), device="cpu"), 64)
     for x, y in zip(jax_leaves((rays, statics)), jax_leaves((pr, ps))):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 

@@ -92,7 +92,7 @@ def test_k6_twin_matches_jax(setup, case):
     base, bg, state, statics, (jwind, twind) = setup
     over, opts = CASES[case]
     cfg = base.replace(**over)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     jkw, tkw = {}, {}
     if opts.get("wind") == "scalar":
         jkw["wind_fn"] = lambda t: (0.5 + 0.0 * t, jnp.float32(0.0))
@@ -139,10 +139,10 @@ def test_k6_keyed_source_matches_jax_scan(setup):
     key, draws = jax.random.PRNGKey(7), []
     for _ in range(run1.n_steps):
         key, sub = jax.random.split(key)
-        draws.append(mtt.from_numpy(src_fn(sub)))
+        draws.append(mtt.from_numpy(src_fn(sub), device="cpu"))
     want, wst, _ = mt.simulate(state, statics, bg, cfg, run1, source=src_fn,
                                source_key=jax.random.PRNGKey(7))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     gen = torch.Generator()
     outs = []
     for sort in (False, True):
@@ -165,7 +165,7 @@ def test_k6_launch_sort_keeps_slot_identity(setup):
     base, bg, state, statics, (_, twind) = setup
     state, statics = _shuffled(state, statics)
     cfg = _tcfg(base.replace(cull=True, relaunch=True))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     run = mtt.RunConfig(dt=120.0, n_steps=6, save_every=2)
     kw = dict(source=(s.rays, st), wind_fn=twind, return_final_perm=True)
     a, sa, ha, pa = simulate_streaming(s, st, b, cfg, run, launch_sort=False, **kw)
@@ -198,12 +198,12 @@ def test_internal_ray_layout_matches_jax(setup):
     fin, stf, _, perm = jax_streaming(state, statics, bg, base, run, tile_rows=8,
                                       launch_sort=True, return_final_perm=True)
     perm = np.asarray(perm)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     _, _, _, tperm = simulate_streaming(s, st, b, _tcfg(base), _trun(run),
                                         launch_sort=True, return_final_perm=True)
     np.testing.assert_array_equal(tperm.numpy(), perm[perm < N_RAY])
     jst, jstat = jax_layout(fin, stf, jnp.asarray(perm))
-    tfin, tstf = mtt.from_numpy((fin, stf))
+    tfin, tstf = mtt.from_numpy((fin, stf), device="cpu")
     ist, istat = internal_ray_layout(tfin, tstf, tperm)
     keep = perm < N_RAY
     for x, y in zip((*jst.rays, *jstat), (*ist.rays, *istat)):
@@ -224,7 +224,7 @@ def test_k6_observe_and_include_t0(setup):
     state and mask."""
     base, bg, state, statics, _ = setup
     cfg = _tcfg(base.replace(cull=True))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     obs = lambda s_, st_, aux: (s_.mean.u, (aux.dens_prop * st_.active).sum(),
                                 (s_.rays.r * st_.active).max())
     for sort in (False, True):
@@ -246,7 +246,7 @@ def test_k6_observe_and_include_t0(setup):
 
 def test_k6_guard_rails(setup):
     base, bg, state, statics, _ = setup
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     cfg = _tcfg(base.replace(cull=True, relaunch=True))
     bad = (s.rays._replace(k=s.rays.k * 1.5), st)
     with pytest.raises(ValueError, match="frozen fields.*'k'"):
@@ -261,7 +261,7 @@ def test_k6_guard_rails(setup):
     with pytest.raises(ValueError, match="hprop"):
         simulate_streaming(s, st, b, cfg.replace(hprop=True), TRUN,
                            source=(s.rays, st))
-    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64")
+    s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
     with pytest.raises(TypeError, match="float32"):
         simulate_streaming(s64, st64, b64, cfg.replace(dtype="float64"), TRUN,
                            source=(s64.rays, st64))
@@ -271,7 +271,7 @@ def test_simulate_resident_routes_to_k6(setup, monkeypatch):
     """The lifecycle, a ``wind_fn`` and an explicit launch sort go to K6
     with their arguments; the rest stays on K5."""
     base, bg, state, statics, (_, twind) = setup
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     calls = []
     orig = step_cuda_stream.simulate_streaming
 
@@ -318,7 +318,7 @@ def test_k6_kernel_matches_twin_on_gpu(setup, cuda_device):
     got, gst, ghist = simulate_streaming(s, st, b, cfg, TRUN, source=(s.rays, st),
                                          wind_fn=twind)
     assert step_cuda_stream.LAUNCHES["K6"] == before + 2
-    cs, cst, cb = mtt.from_numpy((state, statics, bg))
+    cs, cst, cb = mtt.from_numpy((state, statics, bg), device="cpu")
     want, wst, whist = simulate_streaming(cs, cst, cb, cfg, TRUN,
                                           source=(cs.rays, cst), wind_fn=twind)
     assert torch.equal(gst.active.cpu(), wst.active)

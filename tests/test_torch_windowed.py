@@ -100,7 +100,7 @@ def _tiers(state, statics, bg, cfg):
 
 def _check_against_jax(cfg, bg, state, statics):
     want = jax_rhs(120.0, state, statics, bg, cfg)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg = _tcfg(cfg)
     got = torch_rhs(120.0, s, st, b, tcfg)
     for f in ("r", "m") + (("dens",) if cfg.saturate_online else ()):
@@ -172,7 +172,7 @@ def test_block_window_bounds_match_msgwam_tpu(population):
     cfg = cfg.replace(rhs_backend="pallas", window_cells=32)
     lo, hi, c_pad = jax_block_window_bounds(120.0, state, statics, bg, cfg,
                                             block_rows=8)
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     plo, phi, pc = block_window_bounds(120.0, s, st, b, _tcfg(cfg),
                                        tile_rays=1024)
     assert pc == c_pad == 128
@@ -186,20 +186,43 @@ def test_window_fallback_stats_on_the_port_tile():
     the kernel runs."""
     cfg, bg, state, statics = _setup(spread=(2e3, 20e3), sort=True)
     tcfg = _tcfg(cfg.replace(rhs_backend="pallas", window_cells=32))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     stats = window_fallback_stats(120.0, s, st, b, tcfg)
     assert int(stats.n_blocks) == 8192 // 256
     assert int(stats.n_fallback) == 0 and float(stats.fallback_rate) == 0.0
 
     cfg, bg, state, statics = _setup(spread=(2e3, 95e3))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     stats = window_fallback_stats(120.0, s, st, b, tcfg)
     assert int(stats.n_fallback) == int(stats.n_blocks) == 32
     assert float(stats.fallback_rate) == float(stats.full_rate) == 1.0
 
     cfg, bg, state, statics = _setup(tile_spans=(5.0, 30.0, 90.0))
-    s, st, b = mtt.from_numpy((state, statics, bg))
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg2 = tcfg.replace(window_cells=16, window_cells2=48)
     stats = window_fallback_stats(120.0, s, st, b, tcfg2)
     assert 0.0 < float(stats.full_rate) < float(stats.fallback_rate) < 1.0
     assert _tiers(s, st, b, tcfg2) == {0, 1, 2}
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_k3_twin_equals_k2_twin_on_any_plan(sms):
+    """With the same block plan the window never changes a result: K3's
+    twin equals K2's bitwise on mixed tiles, on a one-SM plan and the
+    H100's."""
+    cfg, bg, state, statics = _setup(tile_spans=(5.0, 30.0, 90.0))
+    cfg = cfg.replace(rhs_backend="pallas", window_cells=16, window_cells2=48)
+    s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
+    tcfg = _tcfg(cfg)
+    params, scalars, tables = rhs_cuda.prepare_inputs(120.0, s, st, b, tcfg)
+    fields = rhs_cuda.ray_fields(s, st)
+    plan = ray_physics.stage_plan(8192, 99, sms)
+    window = rhs_cuda_windowed.window_for(tcfg, 100)
+    t3, f3, tiers = ray_physics.fused(params, scalars, tables, fields, st.active,
+                                      True, True, window, plan)
+    t2, f2, _ = ray_physics.fused(params, scalars, tables, fields, st.active,
+                                  True, True, None, plan)
+    assert set(tiers.tolist()) == {0, 1, 2}
+    for f in ("dens", "r", "m"):
+        assert torch.equal(t3[f], t2[f])
+    assert torch.equal(f3, f2)
