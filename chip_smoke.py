@@ -9,10 +9,15 @@ use), then, in order:
 0. prints the device (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit) and turns TF32 off for matmuls and cuDNN;
 1. prints the build time and the compiler's register/spill report;
-2. K1 (flux deposit) against its plain twin at 1e5 and 1e6 rays: error
-   relative to the maximum against the float32 twin (bar 2e-5) and the
-   float64 twin (bar 1e-6), bitwise equality of two launches, and the time
-   of kernel and twin;
+2. K1 (flux deposit) against its plain twin on the random population at
+   1e5 and 1e6 rays, on rays 5-40 km tall at 1e6 (binned walks of long
+   spans) and on a 1024-cell grid at 1e5 (the widest shared-memory tier);
+   on the bench population at launch (phase 8) and on Path A's state after
+   a day at 1e6 (after phase 6): error relative to the maximum against the
+   float32 twin (bar 2e-5) and the float64 twin (bar 1e-6), bitwise
+   equality of two launches, one device kernel per call
+   (``torch.profiler``), the block plan against its mirror
+   (``ray_physics.project_plan``), and the device time of kernel and twin;
 3. K2 (fused RHS, the per-stage template with the window compiled out)
    against its twin on the bench population (gaussian source at 2 km,
    online saturation, float32) at 1e5 and 1e6 rays, each output within
@@ -56,7 +61,8 @@ use), then, in order:
    20 steps through ``simulate_resident``;
 8. K1 on its route: 5 steps with ``rhs_backend="xla",
    projection_backend="pallas"`` at 1e5 rays: 15 K1 launches, within 1e-4
-   of the dense ``mxu`` path;
+   of the dense ``mxu`` path; then K1 (as in 2) on what the route deposits
+   at launch, at 1e5 and 1e6 rays;
 10. Path D, ``BASELINE.json`` ``configs[3]`` (``benchmarks/run.py:403-418``):
    ``simulate_resident`` with cull, relaunch, ``m_max = 2 pi/300``, a tidal
    ``wind_fn`` and ``prognostic_mean=False`` at 1e5 rays for 720 steps
@@ -101,6 +107,7 @@ import torch
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch import _build
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
+from msgwam_tpu_torch.ops.dispersion import cg_r
 from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
                                   rhs_cuda_windowed, step_cuda, step_cuda_stream)
 from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
@@ -257,20 +264,38 @@ def nvidia_smi() -> str:
 # populations
 # ---------------------------------------------------------------------------
 
-def deposit_population(n: int, device, seed: int = SEED):
+def deposit_population(n: int, device, seed: int = SEED, extent=(300.0, 900.0),
+                       n_cells: int = 0):
     """The random deposit population of tests/test_projection.py (realistic
     extents and values, f32-representable), two value rows, on the cell
-    centers the main path deposits onto."""
+    centers the main path deposits onto; ``extent`` the range of the rays'
+    extents in metres (5-40 km: rays spanning 5-41 cells), ``n_cells`` a
+    uniform grid of that many cells over the same heights in place of the
+    centers (1024: the widest grid the kernel takes)."""
     rng = np.random.default_rng(seed)
     r = rng.uniform(1e3, 80e3, n).astype(np.float32)
-    dr = rng.uniform(300.0, 900.0, n).astype(np.float32)
+    dr = rng.uniform(*extent, n).astype(np.float32)
     vals = (rng.lognormal(0.0, 1.0, (2, n)) * rng.uniform(0.1, 1.0, (2, n))
             * 0.12).astype(np.float32)
     pv = np.abs(rng.normal(1e-12, 1e-13, n)).astype(np.float32)
     grid = mtt.GridConfig().centers().astype(np.float32)
+    if n_cells:
+        grid = np.linspace(grid[0], grid[-1], n_cells + 1).astype(np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return (t(vals), t(r - 0.5 * dr), t(r + 0.5 * dr), t(pv),
             torch.ones(n, dtype=torch.bool, device=device), t(grid))
+
+
+def k1_inputs(state, statics, bg, cfg):
+    """What the K1 route deposits for a state (models/rhs.py:144-151): the
+    two flux rows cg_r k dens and cg_r l dens, the rays' edges, the phase
+    volume and the mask, on the cell centers."""
+    rays = state.rays
+    cgr = cg_r(rays.k, rays.l, rays.m, rays.phi, cfg.bvf)
+    return (torch.stack([cgr * rays.k * rays.dens, cgr * rays.l * rays.dens]),
+            rays.r - 0.5 * rays.dr, rays.r + 0.5 * rays.dr,
+            torch.abs(statics.dkk * statics.dll * rays.dm), statics.active,
+            bg.centers)
 
 
 def bench_setup(n: int, device, rhs_backend="pallas", bench=True, **cfg_kw):
@@ -339,38 +364,68 @@ def timing(res: dict) -> dict:
         "library_ms": None}
 
 
-def phase_k1(n: int, device) -> dict:
-    args = deposit_population(n, device)
+def phase_k1(args, label: str) -> dict:
+    """K1 on one population: against its float32 and float64 twins, a
+    bitwise repeat, one device kernel per call, the block plan against its
+    mirror, and the device time of kernel and twin."""
+    n, grid = args[1].shape[0], args[5]
+    n_cells = grid.shape[0] - 1
     args64 = [a.double() if a.is_floating_point() else a for a in args]
     out = projection_cuda.project_pallas(*args)
     out2 = projection_cuda.project_pallas(*args)
     torch.cuda.synchronize()
     twin = projection_cuda.project_pallas_reference(*args)
     twin64 = projection_cuda.project_pallas_reference(*args64)
+    sms = torch.cuda.get_device_properties(grid.device).multi_processor_count
+    plan = projection_cuda.device_plan(n, n_cells, grid.device)
+    mirror = ray_physics.project_plan(n, n_cells, sms)
+    check(plan == mirror, f"K1 ({label}): plan {plan} against the mirror {mirror}")
+    work = projection_cuda.scratch(n, n_cells, grid.device)
+    kernels = kernel_events(lambda: projection_cuda.launch(*args, work=work))
     res = {
-        "n": n,
+        "n": n, "n_cells": n_cells, "plan": tuple(plan),
         "err_vs_twin": rel(twin, out),
         "err_vs_f64": rel(twin64, out),
         "twin_err_vs_f64": rel(twin64, twin),
         "max_abs_err": float((out.double() - twin.double()).abs().max()),
         "bitwise": bool(torch.equal(out, out2)),
-        "ms": cuda_ms(lambda: projection_cuda.launch(*args)),
+        "kernels": kernels,
+        "ms": cuda_ms(lambda: projection_cuda.launch(*args, work=work)),
         "plain_ms": cuda_ms(lambda: projection_cuda.project_pallas_reference(*args),
                             iters=5),
     }
     # bytes: two values, both edges, the phase volume and the mask per ray
-    grid = args[5]
-    cells = covered_cells(args[1], args[2], args[4].float(),
-                          float(grid[1] - grid[0]), grid.shape[0] - 2)
-    res["bound_ms"], res["bound_by"] = bound(21 * n, n * DEPOSIT_CELL_OPS * cells)
-    log(f"[2] K1 n={n}: kernel vs f32 twin {res['err_vs_twin']:.3e}, "
-        f"kernel vs f64 twin {res['err_vs_f64']:.3e} "
-        f"(f32 twin vs f64 {res['twin_err_vs_f64']:.3e}), "
-        f"bitwise repeat {res['bitwise']}, kernel {res['ms']:.4f} ms, "
-        f"twin {res['plain_ms']:.4f} ms")
-    check(res["err_vs_twin"] <= TWIN_BAR, f"K1 vs twin at {n}")
-    check(res["err_vs_f64"] < F64_BAR, f"K1 vs f64 twin at {n}")
-    check(res["bitwise"], f"K1 bitwise repeat at {n}")
+    res["cells"] = covered_cells(args[1], args[2], args[4].float(),
+                                 float(grid[1] - grid[0]), n_cells - 1)
+    res["bound_ms"], res["bound_by"] = bound(21 * n, n * DEPOSIT_CELL_OPS
+                                             * res["cells"])
+    log(f"[2] K1 {label}, n={n}, {n_cells} cells (plan {tuple(plan)}, "
+        f"{res['cells']:.2f} cells a ray): kernel vs f32 twin "
+        f"{res['err_vs_twin']:.3e}, vs f64 twin {res['err_vs_f64']:.3e} "
+        f"(f32 twin vs f64 {res['twin_err_vs_f64']:.3e}), bitwise repeat "
+        f"{res['bitwise']}, device kernels of a call {kernels}; kernel "
+        f"{res['ms']:.5f} ms (bound {res['bound_ms']:.5f} ms, "
+        f"{res['bound_by']}, share {res['bound_ms'] / res['ms']:.3f}), twin "
+        f"{res['plain_ms']:.4f} ms")
+    check(res["err_vs_twin"] <= TWIN_BAR, f"K1 vs twin ({label}, {n})")
+    check(res["err_vs_f64"] < F64_BAR, f"K1 vs f64 twin ({label}, {n})")
+    check(res["bitwise"], f"K1 bitwise repeat ({label}, {n})")
+    check(sum(kernels.values()) == 1
+          and not any("deposit_reduce" in k for k in kernels),
+          f"K1 ({label}): one device kernel a call, got {kernels}")
+    return res
+
+
+def phase_k1_random(device) -> dict:
+    """K1 on the random population at 1e5 and 1e6 rays, on rays spanning
+    5-41 cells at 1e6, and on a 1024-cell grid at 1e5."""
+    res = {f"random_{n}": phase_k1(deposit_population(n, device), "random")
+           for n in SIZES}
+    res["wide_spans_1000000"] = phase_k1(
+        deposit_population(1_000_000, device, extent=(5e3, 40e3)),
+        "extents 5-40 km")
+    res["cells1024_100000"] = phase_k1(
+        deposit_population(100_000, device, n_cells=1024), "1024-cell grid")
     return res
 
 
@@ -504,20 +559,39 @@ def timed_resident(state, statics, bg, cfg, n_steps: int, save_every: int):
     return final, hist, time.perf_counter() - t0
 
 
-def profile_run(fn, n_steps: int) -> dict:
-    """Device operations and device busy time per step from
-    ``torch.profiler`` over one call of ``fn`` (``None`` where the profiler
-    records no device activity)."""
+def profiled(fn):
+    """``(profile, wall seconds)`` of one call of ``fn`` under
+    ``torch.profiler``, bracketed by two short sleep kernels: the profiler
+    can leave a window's first or last kernel unrecorded, and
+    ``device_events`` leaves the sleeps out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return prof, wall
+
+
+def device_events(prof) -> list:
+    """The device events of a ``profiled`` window, without its sleeps."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+
+
+def profile_run(fn, n_steps: int) -> dict:
+    """Device operations and device busy time per step from
+    ``torch.profiler`` over one call of ``fn`` (``None`` where the profiler
+    records no device activity)."""
+    prof, wall = profiled(fn)
+    dev = device_events(prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     res = {"wall_ms_per_step": wall * 1e3 / n_steps,
            "device_ops_per_step": len(dev) / n_steps if dev else None,
@@ -642,16 +716,9 @@ def phase_k4(state, statics, bg, cfg, label: str) -> dict:
 def kernel_events(fn) -> dict:
     """The device kernels ``torch.profiler`` records over one call of
     ``fn``, counted by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     counts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1
+    for e in device_events(profiled(fn)[0]):
+        counts[e.name] = counts.get(e.name, 0) + 1
     return counts
 
 
@@ -894,6 +961,8 @@ def phase_path_b(device, smi: str) -> dict:
 
 
 def phase_k1_route(device) -> dict:
+    """The K1 route over 5 steps at 1e5 rays, and K1 on what the route
+    deposits at launch, at 1e5 and 1e6 rays."""
     cfg, bg, state, statics = bench_setup(
         N_MAIN, device, rhs_backend="xla", projection_backend="pallas",
         interp_backend="mxu")
@@ -906,7 +975,13 @@ def phase_k1_route(device) -> dict:
         f"{fmt(errs)}")
     for k, v in errs.items():
         check(v < TRAJ_BAR, f"K1 route trajectory {k}")
-    return {"launches": counts["K1"], "errs": errs}
+    k1 = {f"bench_launch_{N_MAIN}": phase_k1(k1_inputs(state, statics, bg, cfg),
+                                             "bench population at launch")}
+    c6, b6, s6, st6 = bench_setup(1_000_000, device, rhs_backend="xla",
+                                  projection_backend="pallas")
+    k1["bench_launch_1000000"] = phase_k1(k1_inputs(s6, st6, b6, c6),
+                                          "bench population at launch")
+    return {"launches": counts["K1"], "errs": errs, "k1": k1}
 
 
 # ---------------------------------------------------------------------------
@@ -1259,7 +1334,7 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"[1]   {line.strip()}")
 
-    k1 = {n: phase_k1(n, device) for n in SIZES}
+    k1 = phase_k1_random(device)
     k2, k3 = {}, {}
     for n in SIZES:
         cfg, bg, state, statics = bench_setup(n, device)
@@ -1277,6 +1352,8 @@ def main() -> int:
     path_a, spread = phase_path_a(device, smi)
     k2_spread_1e6 = phase_k2(*spread[SIZES[1]],
                              f"after a Path A day of {DAY_STEPS} steps")
+    k1["path_a_day_1000000"] = phase_k1(k1_inputs(*spread[SIZES[1]]),
+                                        f"after a Path A day of {DAY_STEPS} steps")
     del spread
     path_b = phase_path_b(device, smi)
     route = phase_k1_route(device)
@@ -1288,9 +1365,10 @@ def main() -> int:
         {"name": "K1 flux deposit (project_pallas)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/projection.cu",
          "replaces": "msgwam_tpu/ops/projection_pallas.py:109",
-         "launches": route["launches"],
-         "max_abs_err": k1[N_MAIN]["max_abs_err"],
-         **timing(k1[N_MAIN])},
+         "launches": route["launches"], "redesigned": 6,
+         "max_abs_err": max(r["max_abs_err"] for r in (*k1.values(),
+                                                       *route["k1"].values())),
+         **timing(k1[f"random_{N_MAIN}"])},
         {"name": "K2 fused RHS (rhs_fused)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
@@ -1326,7 +1404,7 @@ def main() -> int:
          "max_abs_err": path_e["max_abs_err"], **timing(path_e)},
     ]
     summary = {
-        "k1": {str(n): v for n, v in k1.items()},
+        "k1": k1,
         "k2": {**{str(n): v for n, v in k2.items()}, "spread": k2_spread,
                "spread_1e6": k2_spread_1e6},
         "k3": {str(n): v for n, v in k3.items()},

@@ -46,10 +46,15 @@ _F = ctypes.c_float
 
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
+    "msgwam_project_plan": [
+        _I, _I,                       # n n_cells
+        _P,                           # out[3]
+    ],
     "msgwam_project": [
         _P, _P, _P, _P, _P, _P, _P,   # v0 v1 r_low r_up phase_vol valid grid
         _I, _I,                       # n n_cells
-        _P, _P, _I,                   # out partials n_blocks
+        _P, _P, _P, _P, _I,           # out partials ranges sync parity
+        _I, _I,                       # n_blocks n_red
         _P,                           # stream
     ],
     "msgwam_rhs_plan": [
@@ -206,5 +211,5 @@ def forward_only(name: str, *trees) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(trees)):
         raise NotImplementedError(
             f"{name} is forward only: the kernels' backward lands with the "
-            f"adjoint (ROADMAP queue 1, item 6); run it under "
+            f"adjoint (ROADMAP queue 1, item 2); run it under "
             f"torch.no_grad(), or use rhs_backend='xla' for gradients")

@@ -10,19 +10,17 @@
 // |min(g0 + (c+1) dz, r_up) - max(g0 + c dz, r_low)|.
 //
 // Layout on Hopper.  A block of kThreads threads walks ray tiles of
-// kThreads rays (one ray per thread).  Each thread stages its ray's span,
-// edges and two pre-scaled values in shared memory.  The tile's touched cell
-// range [cmin, cmax) then gets S lanes per cell (S a power of two up to 32,
-// as many as fit in the block): each lane walks every S-th ray of the tile,
-// and the S lanes combine their float64 sums with a fixed butterfly of warp
-// shuffles.  A ray covers 1-3 cells at the bench population, so a whole warp
-// shares each cell's walk.  The block adds each cell's tile sum to a
-// float64 accumulator in shared memory and ends with one per-block partial;
-// a second pass adds the partials in block order (for K1 a kernel of its
-// own here; K2-K4 sum in their own tail, rhs_windowed.cu, and K5-K7 in
-// step_resident.cu's FluxSync).  K2-K7 walk a tile by its width: several
-// warps per cell up to 8 cells (walk), deposit_walk up to kWideCells, a
-// walk per warp past that (walk_wide).  No float atomics: the result is
+// kThreads rays (one ray per thread).  For K2-K7 each thread stages its
+// ray's span, edges and two pre-scaled values in shared memory
+// (deposit_stage); the block then adds the tile's contributions, cell by
+// cell in a fixed order, to float64 sums in shared memory (DepositAccN,
+// sized to the grid by the kernel), and each kernel sums its blocks' sums in
+// its own tail (K2-K4 by fixed reducer blocks, K5-K7 by step_resident.cu's
+// FluxSync).  The walks here follow the tile's width: several warps per cell
+// up to kWarps cells (walk), a gather with up to 32 lanes per cell
+// (deposit_walk), past kWideCells a walk per warp (walk_wide).  K1 takes the
+// span rule, the tile and sum types and the counters from here and has
+// walks of its own (projection.cu).  No float atomics: the result is
 // bitwise reproducible for a given block count.
 #pragma once
 
@@ -34,7 +32,6 @@ namespace msgwam {
 constexpr int kThreads = 256;            // rays per tile = threads per block
 constexpr int kMaxCells = 1024;          // cells of the deposit grid, at most
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 132 * 8;      // fixed, so the sum order is too
 
 // Truncated, clamped span of one ray; returns false when the ray is out of
 // the domain.  ``lo_ratio`` = r_low/dz, ``up_ratio`` = r_up/dz + 1, each in
@@ -70,10 +67,9 @@ struct DepositAccN {
     for (int c = threadIdx.x; c < n_cells; c += kThreads) v[0][c] = v[1][c] = 0.0;
   }
 };
-using DepositAcc = DepositAccN<kMaxCells>;
 
 // Every thread of the block calls this once per tile (a dead or missing ray
-// passes live = false), then __syncthreads(), then deposit_walk.
+// passes live = false), then __syncthreads(), then a walk.
 __device__ __forceinline__ void deposit_stage(DepositTile& t, bool live,
                                               int nlow, int nup, float r_low,
                                               float r_up, float v0, float v1) {
@@ -298,61 +294,6 @@ __device__ __forceinline__ void count_up(int* c, int v) {
     fence_acq_rel();
     atomicAdd(c, v);
   }
-}
-
-// Writes the block's sums to partials[(block, var, cell)]; call after the
-// last tile's __syncthreads().
-template <class Acc>
-__device__ __forceinline__ void deposit_store(const Acc& acc, double* partials,
-                                              int n_cells) {
-  double* p = partials + static_cast<size_t>(blockIdx.x) * 2 * n_cells;
-  for (int c = threadIdx.x; c < n_cells; c += kThreads) {
-    p[c] = acc.v[0][c];
-    p[n_cells + c] = acc.v[1][c];
-  }
-}
-
-// The second pass for one (var, cell) entry vc = var * n_cells + cell,
-// by the whole block: each thread adds a strided set of block partials,
-// then a fixed shared-memory tree.  ``s`` is kThreads doubles of shared
-// scratch, free again when this returns.  The partials are read past L1
-// (__ldcg), as written by other blocks.
-__device__ __forceinline__ double sum_partials(const double* partials,
-                                               int n_blocks, int n_cells,
-                                               int vc, double* s) {
-  double sum = 0.0;
-  for (int b = threadIdx.x; b < n_blocks; b += kThreads)
-    sum += __ldcg(partials + static_cast<size_t>(b) * 2 * n_cells + vc);
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) s[threadIdx.x] += s[threadIdx.x + half];
-    __syncthreads();
-  }
-  const double total = s[0];
-  __syncthreads();
-  return total;
-}
-
-// Second pass as a kernel: one block per (var, cell).  out is (2, n_cells)
-// f32.  static: each translation unit that includes this header gets its
-// own copy.
-static __global__ void __launch_bounds__(kThreads)
-deposit_reduce_kernel(const double* __restrict__ partials, int n_blocks,
-                      int n_cells, float* __restrict__ out) {
-  __shared__ double s[kThreads];
-  const int vc = blockIdx.x;
-  const double total = sum_partials(partials, n_blocks, n_cells, vc, s);
-  if (threadIdx.x == 0) out[vc] = static_cast<float>(total);
-}
-
-static inline cudaError_t launch_deposit_reduce(const double* partials, int n_blocks,
-                                         int n_cells, float* out,
-                                         cudaStream_t stream) {
-  if (n_cells > 0)
-    deposit_reduce_kernel<<<2 * n_cells, kThreads, 0, stream>>>(
-        partials, n_blocks, n_cells, out);
-  return cudaGetLastError();
 }
 
 }  // namespace msgwam

@@ -8,9 +8,9 @@ Each function computes what its CUDA namesake computes, in the same order
 of operations, in the dtype of its inputs (float32 to hold a kernel to it,
 float64 for an oracle).  The deposit is a dense ``(n, n_cells)`` weight
 matrix with float64-combined block partials; for the per-stage kernels
-K2-K4 they are summed by those kernels' block plan and order
-(:func:`stage_plan`, :func:`sum_blocks`), and :func:`wind_stage` is K4's
-update of the wind.
+K2-K4 and the deposit kernel K1 they are summed by those kernels' block
+plan and order (:func:`stage_plan`, :func:`project_plan`,
+:func:`sum_by_plan`), and :func:`wind_stage` is K4's update of the wind.
 
 The window rule (``msgwam_tpu/ops/rhs_pallas_windowed.py:124-147``): the
 rays of a tile of :data:`TILE` rays touch cells ``[lo, hi)``; the window
@@ -207,15 +207,17 @@ def ray_window(lo, hi, c_pad: int, w1: int, w2: int):
 
 class StagePlan(NamedTuple):
     """The block plan of the per-stage kernels K2-K4
-    (``csrc/rhs_windowed.cu:msgwam_rhs_plan``)."""
+    (``csrc/rhs_windowed.cu:msgwam_rhs_plan``) and of the deposit kernel K1
+    (``csrc/projection.cu:msgwam_project_plan``)."""
 
     blocks: int      # block b owns tiles b, b + blocks, ...
     reducers: int    # the last blocks to arrive, which sum the flux
 
 
 STAGE_BLOCKS_PER_SM = 4    # kStageBlocksPerSm
-MAX_REDUCERS = 256         # kMaxReducers
+MAX_REDUCERS = 256         # kMaxReducers, kProjReducers
 H100_SMS = 132             # an H100 SXM's SMs
+PROJ_BLOCKS_PER_SM = 4     # csrc/projection.cu kProjBlocksPerSm
 
 
 def stage_plan(n: int, n_flux: int, sms: int = H100_SMS) -> StagePlan:
@@ -228,6 +230,14 @@ def stage_plan(n: int, n_flux: int, sms: int = H100_SMS) -> StagePlan:
     return StagePlan(blocks, min(blocks, n_flux + 1, MAX_REDUCERS))
 
 
+def project_plan(n: int, n_cells: int, sms: int = H100_SMS) -> StagePlan:
+    """The plan of K1 for ``n`` rays on ``n_cells`` cells on a card of
+    ``sms`` SMs: one block per 256-ray tile up to 4 per SM, and one
+    reducer per cell, at most 256 and at most the blocks."""
+    blocks = min(-(-n // TILE), PROJ_BLOCKS_PER_SM * sms)
+    return StagePlan(blocks, min(blocks, n_cells, MAX_REDUCERS))
+
+
 def tile_blocks(n: int, plan: StagePlan) -> torch.Tensor:
     """The block of each 256-ray tile under ``plan``."""
     return torch.arange(-(-n // TILE)) % plan.blocks
@@ -236,23 +246,53 @@ def tile_blocks(n: int, plan: StagePlan) -> torch.Tensor:
 GROUP = 64    # threads that sum one flux entry in a reducer
 
 
-def sum_blocks(parts: torch.Tensor) -> torch.Tensor:
+def reduce_group(blocks: int) -> int:
+    """K1's threads per flux entry in a reducer: the blocks rounded up to a
+    power of two, at most 64 (``csrc/projection.cu:reduce_group``); K2-K4
+    always take :data:`GROUP`."""
+    g = 1
+    while g < blocks and g < GROUP:
+        g *= 2
+    return g
+
+
+def sum_blocks(parts: torch.Tensor, group: int = GROUP) -> torch.Tensor:
     """The kernels' sum of ``(blocks, entries)`` float64 block partials,
-    per entry, as a reducer of ``csrc/rhs_windowed.cu`` adds them with a
-    group of 64 threads: thread ``t`` adds blocks ``t, t + 64, ...`` in
-    order, each of the group's two warps combines its 32 thread sums by a
-    butterfly (xor 16, 8, 4, 2, 1), and the two warp sums are added.  A
+    per entry, as a reducer adds them with a group of ``group`` threads
+    (a power of two up to 64): thread ``t`` adds blocks ``t, t + group,
+    ...`` in order, then a butterfly over the group's lanes (xor
+    ``group/2 .. 1``); a group of 64 is two warps, each combining its 32
+    thread sums by xor 16, 8, 4, 2, 1, and the two warp sums are added.  A
     block that did not touch a cell adds an exact zero there."""
     nb = parts.shape[0]
-    parts = F.pad(parts, (0, 0, 0, -nb % GROUP)).view(-1, GROUP, parts.shape[1])
+    parts = F.pad(parts, (0, 0, 0, -nb % group)).view(-1, group, parts.shape[1])
     lanes = parts[0]
     for k in range(1, parts.shape[0]):
         lanes = lanes + parts[k]
-    lanes = lanes.view(2, 32, -1)
-    idx = torch.arange(32, device=parts.device)
-    for off in (16, 8, 4, 2, 1):
+    width = min(group, 32)
+    lanes = lanes.view(group // width, width, -1)
+    idx = torch.arange(width, device=parts.device)
+    off = width // 2
+    while off:
         lanes = lanes + lanes[:, idx ^ off]
-    return lanes[0, 0] + lanes[1, 0]
+        off //= 2
+    return lanes[0, 0] + lanes[1, 0] if group == 64 else lanes[0, 0]
+
+
+def sum_by_plan(prod: torch.Tensor, plan: StagePlan,
+                group: int = GROUP) -> torch.Tensor:
+    """The kernels' sum of per-ray products ``(n, entries)`` under
+    ``plan``: in float64 per 256-ray tile, per block of the plan (block
+    ``b`` holds tiles ``b, b + blocks, ...``) in tile order, and the blocks
+    as :func:`sum_blocks` with ``group``.  Returns ``(entries,)``
+    float64."""
+    n = prod.shape[0]
+    prod = F.pad(prod.to(torch.float64), (0, 0, 0, -n % TILE))
+    tiles = prod.view(-1, TILE, prod.shape[1]).sum(dim=1)
+    per_block = torch.zeros((plan.blocks, tiles.shape[1]), dtype=torch.float64,
+                            device=tiles.device)
+    per_block.index_add_(0, tile_blocks(n, plan).to(tiles.device), tiles)
+    return sum_blocks(per_block, group)
 
 
 def deposit(rt: RayTerms, g: Geometry, plan: Optional[StagePlan] = None):
@@ -261,8 +301,7 @@ def deposit(rt: RayTerms, g: Geometry, plan: Optional[StagePlan] = None):
     Without ``plan`` (K5's twin): block partials of 8192 rays and a
     float64 combination.  With the per-stage kernels' ``plan``: each
     ray's products ``overlap * value`` in the input dtype, summed in
-    float64 per block of the plan (block ``b`` holds tiles ``b, b +
-    blocks, ...``), the blocks summed as :func:`sum_blocks`."""
+    float64 by the plan (:func:`sum_by_plan`)."""
     dtype = rt.r_lo.dtype
     c = torch.arange(g.n_flux, device=rt.r_lo.device)
     cf = c.to(dtype)
@@ -275,14 +314,8 @@ def deposit(rt: RayTerms, g: Geometry, plan: Optional[StagePlan] = None):
     if plan is None:
         return _reduce_partials(block_partials(torch.stack([rt.fvk, rt.fvl]), w),
                                 "f64", dtype)
-    n = w.shape[0]
     prod = torch.cat([w * rt.fvk[:, None], w * rt.fvl[:, None]], dim=1)
-    prod = F.pad(prod.to(torch.float64), (0, 0, 0, -n % TILE))
-    tiles = prod.view(-1, TILE, prod.shape[1]).sum(dim=1)
-    per_block = torch.zeros((plan.blocks, tiles.shape[1]), dtype=torch.float64,
-                            device=tiles.device)
-    per_block.index_add_(0, tile_blocks(n, plan).to(tiles.device), tiles)
-    return sum_blocks(per_block).to(dtype).view(2, g.n_flux)
+    return sum_by_plan(prod, plan).to(dtype).view(2, g.n_flux)
 
 
 def wind_stage(flux, u, v, qu, qv, pg, rhobar, dzf, ff0, dt, cc, bc,

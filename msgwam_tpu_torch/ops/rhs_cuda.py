@@ -19,11 +19,12 @@ dens/r/m tendencies, and the deposit of the pseudo-momentum flux.
 What bounds it on the H100: 57 B per ray per RHS (11 f32 fields and a
 mask byte in, 3 f32 tendencies out), 57 MB at 1e6 rays, ~17 µs at
 3.35 TB/s; ~100 flops per ray is far below the compute roofline, so it
-should be bound by memory.  One ray per thread, a persistent grid whose
-blocks copy their next tile in while they compute, tables in shared
-memory built from the wind on the card, float64 deposit partials summed in
-a fixed order by the kernel's last blocks (the TPU kernel's cross-tile
-Kahan sum): one launch.
+should be bound by memory.  One ray per thread, a persistent grid of at
+most 4 blocks a SM whose other blocks compute while one waits on its plain
+loads (a ``cp.async`` ring of tiles was measured slower and removed,
+PERF.md §6), tables in shared memory built from the wind on the card,
+float64 deposit partials summed in a fixed order by fixed reducer blocks
+in the kernel's tail (the TPU kernel's cross-tile Kahan sum): one launch.
 
 :func:`rhs_fused` launches the kernel for CUDA tensors and runs the plain
 twin :func:`rhs_fused_reference` for CPU tensors; ``LAUNCHES`` counts
@@ -31,7 +32,8 @@ kernel launches.  :func:`inputs` builds what a call launches with (host
 scalars, window, background, fields) once per call, :func:`scratch` the
 flux, the partials and the block ranges for the card's plan
 (:func:`device_plan`, mirrored by :func:`.ray_physics.stage_plan`), and
-:func:`counters` the kernels' two arrival counters.  Like the JAX
+:func:`counters` the two arrival counters of a stream, which K1
+(:mod:`.projection_cuda`) shares.  Like the JAX
 module, this one also holds the window widths of the windowed kernels
 K3-K5: :func:`resolve_window_cells`, :func:`resolve_champion` and
 :func:`apply_champion`.
@@ -233,12 +235,16 @@ class Scratch(NamedTuple):
 
 
 def scratch(n: int, n_tab: int, device) -> Scratch:
-    """The scratch of one call of ``n`` rays on ``n_tab`` centers: new
+    """The scratch of one call of ``n`` rays on ``n_tab`` centers."""
+    return scratch_for(device_plan(n, n_tab - 1, device), n_tab - 1, device)
+
+
+def scratch_for(plan, n_flux: int, device) -> Scratch:
+    """A launch's scratch for ``plan`` and ``n_flux`` deposit cells: new
     buffers from the allocator's cache, no kernel."""
-    plan = device_plan(n, n_tab - 1, device)
     return Scratch(plan,
-                   torch.empty((2, n_tab - 1), dtype=torch.float32, device=device),
-                   torch.empty((2 * (n_tab - 1), plan.blocks), dtype=torch.float64,
+                   torch.empty((2, n_flux), dtype=torch.float32, device=device),
+                   torch.empty((2 * n_flux, plan.blocks), dtype=torch.float64,
                                device=device),
                    torch.empty(plan.blocks, dtype=torch.int32, device=device))
 

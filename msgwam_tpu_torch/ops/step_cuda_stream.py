@@ -31,11 +31,12 @@ Not ported, and why:
 * The ``shard_map`` mesh route of the ensemble (``parallel/ensemble.py``
   raises for ``mesh``).
 * The ``custom_vjp``s: every entry point is forward only and raises when
-  an input needs a gradient, as K1-K5 do (ROADMAP queue 1, item 6).
+  an input needs a gradient, as K1-K5 do (ROADMAP queue 1, item 2).
 * ``LAUNCH_SORT_MIN = 500_000``, measured on a TPU v5e.  On the H100 the
-  sort does not pay: over the configs[3] day at 1e6 rays the sorted run
-  took 0.143-0.146 s against 0.095-0.102 s unsorted (``chip_smoke.py``
-  phase [11]; PERF.md), so ``launch_sort=None`` means off.
+  sort does not pay: over the configs[3] day at 1e6 rays the sorted runs
+  took 0.0786 and 0.0795 s against 0.0734 and 0.0741 s unsorted, 7-8% more
+  (``chip_smoke.py`` phase [11], NVIDIA H100 80GB HBM3 at 700 W), so
+  ``launch_sort=None`` means off.
 
 Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``), the lifecycle with online saturation only.  For CPU

@@ -18,9 +18,10 @@ from msgwam_tpu_torch.ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed,
 from msgwam_tpu_torch.parallel import stack_ensemble
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
-KERNEL_ENTRIES = {"msgwam_project", "msgwam_rhs_plan", "msgwam_rhs_fused",
-                  "msgwam_rhs_windowed", "msgwam_step_resident_plan",
-                  "msgwam_step_resident", "msgwam_step_stream"}
+KERNEL_ENTRIES = {"msgwam_project_plan", "msgwam_project", "msgwam_rhs_plan",
+                  "msgwam_rhs_fused", "msgwam_rhs_windowed",
+                  "msgwam_step_resident_plan", "msgwam_step_resident",
+                  "msgwam_step_stream"}
 
 
 def _declarations():
@@ -99,7 +100,7 @@ def test_kernel_entry_points_refuse_gradients(entry):
     the CPU as on the card; under ``torch.no_grad()`` it runs."""
     cfg, bg, state, statics = _bench_inputs()
     call = ENTRY_POINTS[entry]
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         call(cfg, bg, _with_grad(state), statics)
     with torch.no_grad():
         out = call(cfg, bg, _with_grad(state), statics)

@@ -9,7 +9,7 @@ import torch
 
 from msgwam_tpu.ops import projection as jp
 from msgwam_tpu.ops.projection_pallas import project_pallas as jax_project_pallas
-from msgwam_tpu_torch.ops import projection as tp, projection_cuda
+from msgwam_tpu_torch.ops import projection as tp, projection_cuda, ray_physics
 
 torch.set_num_threads(1)
 
@@ -126,6 +126,55 @@ def test_k1_twin_matches_project_pallas(n_points):
     assert one.shape == (1, n_points - 1)
 
 
+def _population(name, rng):
+    """The populations that take each of K1's walks: narrow tiles (every ray
+    in cells 1-2), 79-cell tiles of short rays, rays spanning 5-41 cells,
+    a 1024-cell grid, a ray count that is not a multiple of 256, and a
+    fully masked tile."""
+    n, grid = 1000, _grid(101)
+    lo_hi, extent = (1e3, 80e3), (300.0, 900.0)
+    if name == "narrow":
+        n, lo_hi, extent = 768, (1.3e3, 2.7e3), (100.0, 500.0)
+    elif name == "tiles_79_cells":
+        n = 1024
+    elif name == "wide_spans":
+        extent = (5e3, 40e3)
+    elif name == "cells_1024":
+        n, grid = 1024, np.linspace(0.0, 100e3, 1025)
+    r = rng.uniform(*lo_hi, n)
+    dr = rng.uniform(*extent, n)
+    vals = rng.normal(size=(2, n))
+    pv = np.abs(rng.normal(1.0, 0.1, n))
+    valid = rng.random(n) > 0.05
+    if name == "masked_tile":
+        valid[256:512] = False
+    return (vals, r - dr / 2, r + dr / 2, pv, valid, grid), extent[1]
+
+
+@pytest.mark.parametrize("name", ["narrow", "tiles_79_cells", "wide_spans",
+                                  "cells_1024", "ragged_n", "masked_tile"])
+def test_k1_twin_on_the_kernels_walks(name):
+    """K1's twin, summed by the kernel's plan, on the populations of each of
+    the kernel's walks, against the Pallas kernel (interpret mode) and the
+    float64 oracle at the bars of tests/test_projection.py."""
+    rng = np.random.default_rng(17)
+    args, dr_max = _population(name, rng)
+    grid = args[5]
+    f32 = lambda x: jnp.asarray(x, jnp.float32)
+    want_pallas = np.asarray(jax_project_pallas(
+        *(f32(x) for x in args[:4]), jnp.asarray(args[4]), f32(grid)))
+    oracle = np.asarray(jp.project(
+        *(jnp.asarray(x) for x in args),
+        max_span=jp.required_span(dr_max, grid[1] - grid[0])))
+    twin = projection_cuda.project_pallas_reference(
+        *_torch(*args, dtype=torch.float32)).numpy()
+    assert twin.shape == (2, grid.shape[0] - 1)
+    assert _rel(twin, want_pallas.astype(np.float64)) <= 1e-5
+    assert _rel(twin, oracle) < 2e-5
+    if name == "narrow":
+        assert np.all(twin[:, 3:] == 0.0) and np.all(twin[:, 1:3] != 0.0)
+
+
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
     rng = np.random.default_rng(15)
     grid = _grid(101)
@@ -143,12 +192,18 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 def test_k1_kernel_matches_twin_on_gpu(cuda_device):
+    """One launch a call, the card's plan equal to its mirror, within 1e-6
+    of the float64 twin, bitwise repeatable: on both grids of the other
+    tests and on a 1024-cell grid (the widest shared-memory tier)."""
     rng = np.random.default_rng(16)
-    for n_points in (101, 100):
-        grid = _grid(n_points)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for grid in (_grid(101), _grid(100), np.linspace(0.0, 100e3, 1025)):
         vals, r_low, r_up, pv, valid = _random_rays(rng, 100_000)
         args = [t.to(cuda_device) for t in _torch(
             vals, r_low, r_up, pv, valid, grid, dtype=torch.float32)]
+        n_cells = grid.shape[0] - 1
+        assert projection_cuda.device_plan(100_000, n_cells, cuda_device) == \
+            ray_physics.project_plan(100_000, n_cells, sms)
         before = projection_cuda.LAUNCHES
         got = projection_cuda.project_pallas(*args)
         again = projection_cuda.project_pallas(*args)

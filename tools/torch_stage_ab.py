@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the per-stage kernels of ``msgwam_tpu_torch`` (K2, K3, K4) and the
-Path A day from one or more checkouts on one GPU, in turns.
+Path A day, or with ``--k1`` the deposit kernel K1, from one or more
+checkouts on one GPU, in turns.
 
-    python3 tools/torch_stage_ab.py NAME=PATH [NAME=PATH ...] [--order a,b,b,a]
-                                    [--out FILE]
+    python3 tools/torch_stage_ab.py NAME=PATH [NAME=PATH ...] [--k1]
+                                    [--order a,b,b,a] [--out FILE]
 
 Each ``NAME=PATH`` is the root of a checkout whose ``msgwam_tpu_torch`` is
 timed; ``--order`` lists the names in the order their runs go (default:
@@ -26,6 +27,17 @@ day (720 steps):
   busy time and idle share per step, and the host's time by operator
   (self CPU time, the 12 largest).
 
+With ``--k1`` a run times one K1 call (``projection_cuda.launch``) the same
+way on the populations of ``chip_smoke.py`` (this file's checkout's): the
+random population at 1e5 and 1e6 rays, the bench population's deposit at
+launch at 1e5 and 1e6 and after a Path A day at 1e6, rays 5-40 km tall at
+1e6 and a 1024-cell grid at 1e5, and two that split the call's cost: the
+random population at 1e6 with every ray masked (the loads, the staging and
+the tail, no walk) and one 256-ray tile (the floor of a launch and its
+tail); and, from ``torch.profiler`` over
+``ITERS`` calls, the device time per call of each kernel a call launches
+(before the redesign: the deposit and its reduce kernel).
+
 Prints one JSON line per run, each with the card's ``nvidia-smi`` name and
 power limit, and with ``--out`` writes them all to ``FILE`` as one JSON
 object.
@@ -33,17 +45,20 @@ object.
 
 from __future__ import annotations
 
+import importlib.util
 import inspect
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_SAMPLES = 5
 ITERS = 20            # launches per sample
 DT = 120.0
 DAY = 720
+SIZES = (100_000, 1_000_000)
 
 
 def _smi() -> str:
@@ -51,6 +66,101 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def samples(fn):
+    """Device ms per call of ``fn``: events around ITERS calls behind a
+    sleep kernel, so that they time the device and not the host."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(N_SAMPLES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(ITERS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / ITERS)
+    return out
+
+
+def kernel_us(fn) -> dict:
+    """Device µs per call of ``fn`` of each kernel it launches, by name,
+    from ``torch.profiler`` over ITERS calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / ITERS
+    return out
+
+
+def worker_k1() -> dict:
+    import torch
+
+    import msgwam_tpu_torch as mtt
+    from msgwam_tpu_torch import _build
+    from msgwam_tpu_torch.ops import projection_cuda
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.library()
+    res = {"build_s": time.perf_counter() - t0}
+    log = _build.library_path().with_suffix(".log").read_text()
+    part = log.split("== projection.cu")[-1].split("==")[0]
+    res["ptxas"] = [x.strip() for x in part.splitlines()
+                    if "registers" in x or "spill" in x]
+    small, large = SIZES
+    pops = {f"random_{n}": lambda n=n: smoke.deposit_population(n, dev)
+            for n in SIZES}
+    pops[f"wide_spans_{large}"] = lambda: smoke.deposit_population(
+        large, dev, extent=(5e3, 40e3))
+    pops[f"cells1024_{small}"] = lambda: smoke.deposit_population(
+        small, dev, n_cells=1024)
+
+    def masked(n):
+        """Every ray masked: the loads, the staging and the tail, no walk."""
+        args = smoke.deposit_population(n, dev)
+        return (*args[:4], torch.zeros_like(args[4]), args[5])
+
+    pops[f"masked_{large}"] = lambda: masked(large)
+    pops["one_tile_256"] = lambda: smoke.deposit_population(256, dev)
+
+    def bench(n, day=False):
+        cfg, bg, state, statics = smoke.bench_setup(n, dev, window_cells=-1)
+        if day:
+            state, _, _ = mtt.simulate(state, statics, bg, cfg, mtt.RunConfig(
+                dt=DT, n_steps=DAY, save_every=DAY))
+        return smoke.k1_inputs(state, statics, bg, cfg)
+
+    for n in SIZES:
+        pops[f"bench_launch_{n}"] = lambda n=n: bench(n)
+    pops[f"path_a_day_{large}"] = lambda: bench(large, day=True)
+    for name, make in pops.items():
+        args = make()
+        res[f"k1_{name}_ms"] = samples(lambda: projection_cuda.launch(*args))
+        res[f"k1_{name}_kernels_us"] = kernel_us(lambda: projection_cuda.launch(*args))
+        del args
+        torch.cuda.empty_cache()
+    return res
 
 
 def worker() -> dict:
@@ -85,25 +195,6 @@ def worker() -> dict:
         state = mtt.State(rays, mtt.MeanState(uu.to(dev),
                                               torch.zeros_like(uu).to(dev)))
         return cfg, bg, state, statics
-
-    def samples(fn):
-        """Device ms per call of ``fn``: events around ITERS calls behind a
-        sleep kernel, so that they time the device and not the host."""
-        for _ in range(3):
-            fn()
-        out = []
-        for _ in range(N_SAMPLES):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(50_000_000)
-            a.record()
-            for _ in range(ITERS):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b) / ITERS)
-        return out
 
     def kernels(cfg, bg, state, statics):
         """Launch closures for K2, K3 and a later K4 stage."""
@@ -183,14 +274,19 @@ def worker() -> dict:
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--worker"]:
+    if argv[:1] in (["--worker"], ["--worker-k1"]):
         sys.path.insert(0, os.path.abspath(argv[1]))
         import torch
 
         if not torch.cuda.is_available():
             raise SystemExit("torch_stage_ab: no CUDA device")
-        print(json.dumps(worker()), flush=True)
+        print(json.dumps(worker_k1() if argv[0] == "--worker-k1" else worker()),
+              flush=True)
         return 0
+    mode = "--worker"
+    if "--k1" in argv:
+        argv = [a for a in argv if a != "--k1"]
+        mode = "--worker-k1"
     order, out_file = None, None
     if "--order" in argv:
         i = argv.index("--order")
@@ -206,7 +302,7 @@ def main(argv) -> int:
     runs = []
     for name in order:
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
+            [sys.executable, os.path.abspath(__file__), mode,
              os.path.abspath(paths[name])],
             capture_output=True, text=True, cwd=os.path.abspath(paths[name]))
         if out.returncode:
