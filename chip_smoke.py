@@ -80,7 +80,19 @@ use), then, in order:
    launches, members 0 and 7 of a perturbed ensemble within 1e-5 of their
    own K6 runs over 9 steps, K7 against its twin over 3 steps, the day's
    wall against 8 sequential K6 days, and K7's device time per step in
-   10-step launches.
+   10-step launches;
+13. the adjoint, in float32 on the bench population: the gradient of
+   sum((u_final - u0)^2) in a density scale and its derivative along a
+   seeded per-ray direction through the K2 route (1e5 rays, 3 steps),
+   Path A (K4, 1e5 rays, 20 steps), Path B (K5, 1e5 rays, 20 steps with
+   ``save_every=10``) and Path E (K7, 2 x 50,000 rays, 10 steps), each
+   finite, nonzero, within 5e-4 of the plain route's (``rhs_backend=
+   "xla"``, mxu backends), with the kernels launched as the forward needs
+   and no more; Path A with ``remat`` False, True and ``"full"`` at 1e5
+   rays over 100 steps (the forward bitwise the same, the gradient within
+   1e-6) and with ``"full"`` at 1e6 rays over 20 steps, each with its
+   forward and backward wall time and ``torch.cuda.max_memory_allocated``;
+   and K1 and K6 refusing an input that needs a gradient.
 
 Every kernel's entry in the summary line carries its bound: the larger of
 its bytes over the H100's memory rate and its operations over its f32 rate
@@ -111,6 +123,7 @@ from msgwam_tpu_torch.ops.dispersion import cg_r
 from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
                                   rhs_cuda_windowed, step_cuda, step_cuda_stream)
 from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
+from msgwam_tpu_torch.state import tree_map
 
 SEED = 0
 N_MAIN = 100_000
@@ -1313,6 +1326,201 @@ def phase_path_e(device, smi: str) -> dict:
             "on_chip_share": plan.on_chip_share}
 
 
+# ---------------------------------------------------------------------------
+# the adjoint (phase 13)
+# ---------------------------------------------------------------------------
+
+ADJ_BAR = 5e-4     # kernel route against the plain route, as the JAX tests
+ADJ_N = 100_000
+ADJ_BIG = 1_000_000
+ADJ_MEMBERS, ADJ_PER_MEMBER = 2, 50_000
+
+
+def plain_route(cfg):
+    """The plain route the kernels' gradients are held to: the composable
+    RHS with the dense mxu backends, full width, ``flux_accum`` kept."""
+    return cfg.replace(rhs_backend="xla", projection_backend="mxu",
+                       interp_backend="mxu", window_cells=0)
+
+
+def adjoint_run(run_fn, state, theta):
+    """Forward and backward of L = sum((u_final - u0)^2), the density
+    scaled by ``scale * (1 + eps * theta)``, at scale 1 and eps 0: dL/dscale
+    and dL/deps (the derivative along theta), the final state, and the
+    forward's and the backward's wall time."""
+    device = state.rays.r.device
+    scale = torch.ones((), device=device, requires_grad=True)
+    eps = torch.zeros((), device=device, requires_grad=True)
+    dens = state.rays.dens * scale * (1.0 + eps * theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = run_fn(state._replace(rays=state.rays._replace(dens=dens)))
+    loss = ((final.mean.u - state.mean.u) ** 2).sum()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = (float(scale.grad), float(eps.grad))
+    check(all(math.isfinite(g) and g != 0.0 for g in grads),
+          f"gradient not finite and nonzero: {grads}")
+    final = tree_map(torch.Tensor.detach, final)
+    return {"d_scale": grads[0], "d_theta": grads[1], "fwd_s": t1 - t0,
+            "bwd_s": t2 - t1}, final
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("d_scale", "d_theta")}
+
+
+def peak_run(run_fn, state, theta) -> dict:
+    """adjoint_run with the peak of allocated device memory over it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, final = adjoint_run(run_fn, state, theta)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_over_inputs_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return res, final
+
+
+def phase_adjoint(device, smi: str) -> dict:
+    """Gradients through each differentiable kernel route against the
+    plain route, remat as a memory schedule, and the routes that stay
+    forward only."""
+    gen = torch.Generator().manual_seed(SEED)
+    res = {}
+    # compensated: the plain route's own f32 deposit error (4.4e-6 at 1e6
+    # rays natively) stays out of the comparison
+    cfg, bg, state, statics = bench_setup(ADJ_N, device, flux_accum="compensated")
+    theta = torch.randn(ADJ_N, generator=gen).to(device)
+
+    def simulate_fn(c, n_steps, save_every, **kw):
+        run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=save_every)
+        return lambda s: mtt.simulate(s, statics, bg, c, run, validate=False,
+                                      **kw)[0]
+
+    def resident_fn(c, n_steps, save_every):
+        run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=save_every)
+        return lambda s: mtt.simulate_resident(s, statics, bg, c, run)[0]
+
+    routes = {
+        "K2": (simulate_fn(cfg, 3, 3), 3, {"K2": 9}),
+        "K4 (Path A)": (simulate_fn(cfg.replace(window_cells=-1), 20, 20), 20,
+                        {"K4": 60}),
+        "K5 (Path B)": (resident_fn(cfg, 20, 10), 20, {"K5": 2}),
+    }
+    plain = {}
+    for name, (fn, n_steps, want) in routes.items():
+        if n_steps not in plain:
+            plain_fn = simulate_fn(plain_route(cfg), n_steps, n_steps)
+            adjoint_run(plain_fn, state, theta)        # warm-up
+            plain[n_steps], _ = adjoint_run(plain_fn, state, theta)
+        adjoint_run(fn, state, theta)                  # warm-up
+        reset_launches()
+        got, _ = adjoint_run(fn, state, theta)
+        got["launches"] = expect_launches(f"adjoint {name}", **want)
+        got["errs"] = grad_errs(got, plain[n_steps])
+        for k, v in got["errs"].items():
+            check(v < ADJ_BAR, f"adjoint {name}: {k} off the plain route by {v:.3e}")
+        res[name] = got
+        log(f"[13] {name} n={ADJ_N}, {n_steps} steps: d/dscale {got['d_scale']:.6e}, "
+            f"d/dtheta {got['d_theta']:.6e}, vs plain route {fmt(got['errs'])}; "
+            f"forward {got['fwd_s']:.4f} s, backward {got['bwd_s']:.4f} s "
+            f"(plain route {plain[n_steps]['fwd_s']:.4f} s, "
+            f"{plain[n_steps]['bwd_s']:.4f} s) on {smi}")
+    res["plain"] = {str(k): v for k, v in plain.items()}
+
+    # K7: two members, their own amplitudes and directions
+    cfg_e, bg_e, st_e, stat_e = bench_setup(ADJ_PER_MEMBER, device,
+                                            window_cells=24,
+                                            flux_accum="compensated")
+    members = [(st_e._replace(rays=st_e.rays._replace(
+        dens=st_e.rays.dens * (1.0 + 0.1 * e))), stat_e)
+        for e in range(ADJ_MEMBERS)]
+    states, statics_e = stack_ensemble(members)
+    theta_e = torch.randn(ADJ_MEMBERS, ADJ_PER_MEMBER, generator=gen).to(device)
+    run_e = mtt.RunConfig(dt=DT, n_steps=10, save_every=5)
+    ens = lambda s: mtt.simulate_streaming_ensemble(s, statics_e, bg_e, cfg_e,
+                                                    run_e)[0]
+
+    def ens_plain(s):
+        one = lambda tree, e: tree_map(lambda x: x[e], tree)
+        finals = [mtt.simulate(one(s, e), one(statics_e, e), bg_e,
+                               plain_route(cfg_e), run_e, validate=False)[0]
+                  for e in range(ADJ_MEMBERS)]
+        return tree_map(lambda *xs: torch.stack(xs), *finals)
+
+    want, _ = adjoint_run(ens_plain, states, theta_e)
+    adjoint_run(ens, states, theta_e)
+    reset_launches()
+    got, _ = adjoint_run(ens, states, theta_e)
+    got["launches"] = expect_launches("adjoint K7", K7=2)
+    got["errs"] = grad_errs(got, want)
+    for k, v in got["errs"].items():
+        check(v < ADJ_BAR, f"adjoint K7: {k} off the plain route by {v:.3e}")
+    res["K7 (Path E)"] = got
+    log(f"[13] K7 (Path E) {ADJ_MEMBERS} x {ADJ_PER_MEMBER}, 10 steps: d/dscale "
+        f"{got['d_scale']:.6e}, d/dtheta {got['d_theta']:.6e}, vs plain route "
+        f"{fmt(got['errs'])}; forward {got['fwd_s']:.4f} s, backward "
+        f"{got['bwd_s']:.4f} s (plain route {want['fwd_s']:.4f} s, "
+        f"{want['bwd_s']:.4f} s) on {smi}")
+    del states, statics_e, members, st_e, stat_e
+
+    # remat: the same forward, bit for bit, and the same gradient; peaks
+    path_a = cfg.replace(window_cells=-1)
+    for n, n_steps, modes in ((ADJ_N, 100, (False, True, "full")),
+                              (ADJ_BIG, 20, ("full",))):
+        if n != ADJ_N:
+            del state, statics, bg
+            cfg, bg, state, statics = bench_setup(n, device,
+                                                  flux_accum="compensated")
+            path_a = cfg.replace(window_cells=-1)
+            theta = torch.randn(n, generator=gen).to(device)
+        runs = {}
+        for remat in modes:                            # warm-up
+            adjoint_run(simulate_fn(path_a, 2, 1, remat=remat), state, theta)
+        for remat in modes:
+            runs[remat] = peak_run(simulate_fn(path_a, n_steps, 10, remat=remat),
+                                   state, theta)
+            r = runs[remat][0]
+            log(f"[13] Path A remat={remat!r} n={n}, {n_steps} steps "
+                f"(save_every 10): forward {r['fwd_s']:.4f} s, backward "
+                f"{r['bwd_s']:.4f} s, max_memory_allocated {r['peak_gib']:.3f} GiB "
+                f"({r['peak_over_inputs_gib']:.3f} GiB over the inputs) on {smi}")
+        base, base_final = runs[modes[0]]
+        for remat in modes[1:]:
+            r, final = runs[remat]
+            same = all(torch.equal(a, b) for a, b in
+                       zip(_build._tensors(base_final), _build._tensors(final)))
+            check(same, f"remat={remat!r}: the forward differs from remat=False")
+            r["errs"] = grad_errs(r, base)
+            for k, v in r["errs"].items():
+                check(v < 1e-6, f"remat={remat!r}: {k} off remat=False by {v:.3e}")
+            log(f"[13]   remat={remat!r}: forward bitwise equal, gradient vs "
+                f"remat=False {fmt(r['errs'])}")
+        res[f"remat_{n}_{n_steps}"] = {str(k): v[0] for k, v in runs.items()}
+
+    # the routes without a backward still refuse one
+    args = list(k1_inputs(state, statics, bg, cfg))
+    args[0] = args[0].clone().requires_grad_(True)
+    for name, call in (
+            ("project_pallas (K1)", lambda: projection_cuda.project_pallas(*args)),
+            ("simulate_resident with the lifecycle (K6)",
+             lambda: mtt.simulate_resident(
+                 state._replace(rays=state.rays._replace(
+                     dens=state.rays.dens.clone().requires_grad_(True))),
+                 statics, bg, cfg.replace(cull=True),
+                 mtt.RunConfig(dt=DT, n_steps=1, save_every=1)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"[13] {name} refuses a gradient: {e}")
+        else:
+            raise AssertionError(f"{name} ran with an input that needs a gradient")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1360,6 +1568,7 @@ def main() -> int:
     path_d = phase_path_d(device, smi)
     sort = phase_launch_sort(device, smi)
     path_e = phase_path_e(device, smi)
+    adjoint = phase_adjoint(device, smi)
 
     kernels = [
         {"name": "K1 flux deposit (project_pallas)", "route": "cuda",
@@ -1410,7 +1619,7 @@ def main() -> int:
         "k3": {str(n): v for n, v in k3.items()},
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
         "k1_route": route, "path_d": path_d, "launch_sort": sort,
-        "path_e": path_e, "build_s": build_s,
+        "path_e": path_e, "adjoint": adjoint, "build_s": build_s,
     }
     log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels

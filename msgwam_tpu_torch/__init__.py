@@ -19,6 +19,13 @@ through :func:`simulate_resident`, which routes the lifecycle, a
 ``wind_fn`` and the launch sort to K6 (``ops/step_cuda_stream.py``); and
 ensembles in one launch of K7 (:func:`simulate_streaming_ensemble`,
 ``parallel.ensemble_simulate(backend="mega")``).
+
+Gradients follow ``requires_grad`` on the inputs wherever the JAX package
+has them: through :func:`simulate` (with ``remat`` True or ``"full"``:
+``torch.utils.checkpoint``), the dense ``mxu`` interpolation and deposit
+(residual-free backwards with the JAX package's tie conventions), and the
+kernel routes K2-K5 and K7, whose backwards differentiate the plain path
+(``ops/adjoint.py``).  K1 and K6 are forward only, as in the JAX package.
 """
 
 from .config import GridConfig, ModelConfig, RunConfig, REFERENCE_RUN_CONFIG  # noqa: F401

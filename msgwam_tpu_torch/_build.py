@@ -17,8 +17,9 @@ rebuilt and a stale library is never loaded.  Only the sources in this
 package are used; the compiler's report (registers, spills) is kept beside
 the library as ``<name>.log``.
 
-:func:`forward_only` is the guard every kernel entry point calls: the
-kernels have no backward yet.
+:func:`forward_only` is the guard of the two entry points that have no
+backward, as in the JAX package: K1 and K6.  The others differentiate
+the plain path in their backward (``ops/adjoint.py``).
 """
 
 from __future__ import annotations
@@ -204,12 +205,13 @@ def _tensors(tree):
             yield from _tensors(x)
 
 
-def forward_only(name: str, *trees) -> None:
-    """Raise when autograd would record through a kernel entry point: the
-    kernels return tensors without a ``grad_fn``, so a gradient would
-    otherwise vanish without a word.  Checked on every device alike."""
+def forward_only(name: str, route: str, *trees) -> None:
+    """Raise when autograd would record through an entry point that has no
+    backward (K1, K6): its kernel returns tensors without a ``grad_fn``,
+    so a gradient would otherwise vanish without a word.  ``route`` names
+    the differentiable way to the same result.  Checked on every device
+    alike."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(trees)):
         raise NotImplementedError(
-            f"{name} is forward only: the kernels' backward lands with the "
-            f"adjoint (ROADMAP queue 1, item 2); run it under "
-            f"torch.no_grad(), or use rhs_backend='xla' for gradients")
+            f"{name} is forward only, as in the JAX package; run it under "
+            f"torch.no_grad(), or use {route} for gradients")

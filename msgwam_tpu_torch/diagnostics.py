@@ -11,7 +11,7 @@ each block of the per-stage kernels K2-K4 publishes under their block plan
 (:func:`msgwam_tpu_torch.ops.ray_physics.stage_plan`, the plan the kernels
 and their twins take).  And :func:`internal_ray_layout`, the layout the
 launch-sorted K6 saw.  The rest of the JAX module (wave-action histories,
-the reference window diagnostics) is ROADMAP queue 1, item 7.
+the reference window diagnostics) is ROADMAP queue 1, item 4.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import ModelConfig, RunConfig
 from ..ops.projection import required_span
@@ -128,7 +129,8 @@ def rk3_step(
     With the windowed pallas backend (``window_cells != 0``), RK3, the
     default RHS and ``hprop=False``, the whole step runs stage-fused in
     the kernel K4 (``ops/rhs_cuda_windowed.py``), three launches per
-    step."""
+    step; its backward differentiates the generic RK3 step on the
+    composable RHS, as the JAX package's ``_rk3_step_fused`` does."""
     if (rhs is rhs_default and cfg.rhs_backend == "pallas"
             and cfg.window_cells != 0 and cfg.integrator == "rk3"
             and not cfg.hprop):
@@ -203,13 +205,32 @@ def step(
     return state, statics, aux
 
 
-def _not_ported(name: str, item: str):
-    raise NotImplementedError(f"simulate({name}=...) is not ported yet "
-                              f"(ROADMAP {item})")
-
-
 def _gather(tree, idx):
     return tree_map(lambda x: x[idx], tree)
+
+
+def _checkpoint(fn, key, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, which runs it again
+    in the backward instead of keeping what it saved.  ``key``, a
+    ``torch.Generator`` that ``fn`` draws from (or ``None``), is rewound to
+    where it stood at the first run for every later one and put back
+    after, so a replay draws the templates the first run drew: the JAX
+    package's explicit keys replay by themselves."""
+    if key is not None:
+        start, inner, ran = key.get_state(), fn, []
+
+        def fn(*a):
+            if not ran:
+                ran.append(True)
+                return inner(*a)
+            now = key.get_state()
+            key.set_state(start)
+            try:
+                return inner(*a)
+            finally:
+                key.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def simulate(
@@ -257,13 +278,23 @@ def simulate(
     frames, relaunch templates and the final state all stay in the
     caller's slot order; only the order of floating-point sums changes.
 
-    ``remat`` (ROADMAP queue 1, item 5) and ``axis_name`` (queue 1,
-    item 9) raise ``NotImplementedError``.
+    Gradients follow ``requires_grad`` on the inputs: the loop records
+    what autograd needs when an input needs a gradient, and nothing when
+    none does.  ``remat=True`` runs each block of ``save_every`` steps
+    under ``torch.utils.checkpoint`` (its steps run again in the backward
+    instead of being kept), and ``remat="full"`` each step inside the
+    block as well, as ``jax.checkpoint`` does in the JAX package; the
+    forward and the gradient are the same.  Only the last step's aux
+    leaves a block.
+
+    ``axis_name`` (ROADMAP queue 1, item 8: ray sharding) raises
+    ``NotImplementedError``.
     """
-    if remat:
-        _not_ported("remat", "queue 1, item 5: torch.utils.checkpoint")
     if axis_name is not None:
-        _not_ported("axis_name", "queue 1, item 9: ray sharding")
+        raise NotImplementedError("simulate(axis_name=...) is not ported yet "
+                                  "(ROADMAP queue 1, item 8: ray sharding)")
+    if remat not in (False, True, "full"):
+        raise ValueError(f"remat must be False, True or 'full', got {remat!r}")
     keyed_source = callable(source)
     if keyed_source and source_key is None:
         raise ValueError("a callable source requires source_key")
@@ -278,8 +309,9 @@ def simulate(
     use_sort = sort_every > 0
     slot = (torch.arange(state.rays.r.shape[0], device=state.rays.r.device)
             if use_sort else None)
+    key = source_key if keyed_source and cfg.relaunch else None
 
-    def unsorted(st, stat, aux):
+    def unsorted(st, stat, aux, slot):
         if not use_sort:
             return st, stat, aux
         inv = torch.argsort(slot)
@@ -287,35 +319,55 @@ def simulate(
                 _gather(aux, inv))
 
     t_dtype = bg.centers.dtype
+
+    def advance(i, state, statics, slot):
+        """Step ``i``: the sort, the prescribed wind, the step and the
+        relaunch."""
+        if use_sort and i % sort_every == 0:
+            order = torch.argsort(
+                torch.where(statics.active, state.rays.r,
+                            torch.full_like(state.rays.r, math.inf)),
+                stable=True)
+            state = state._replace(rays=_gather(state.rays, order))
+            statics = _gather(statics, order)
+            slot = slot[order]
+        if wind_fn is not None:
+            t = t0 + torch.tensor(float(i), dtype=t_dtype) * run.dt
+            u, v = wind_fn(t)
+            mean = state.mean
+            state = state._replace(mean=mean._replace(
+                u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
+        state, statics, aux = step(run.dt, state, statics, bg, cfg, None, rhs)
+        if cfg.relaunch and source is not None:
+            template = source(source_key) if keyed_source else source
+            if use_sort:
+                template = _gather(template, slot)
+            if relaunch_every <= 1 or i % relaunch_every == 0:
+                state, statics = _sources.relaunch(state, statics, template)
+        return state, statics, slot, aux
+
+    def block(b, state, statics, slot):
+        """The ``save_every`` steps of block ``b``; the last step's aux."""
+        for i in range(b * run.save_every, (b + 1) * run.save_every):
+            if remat == "full":
+                state, statics, slot, aux = _checkpoint(advance, key, i, state,
+                                                        statics, slot)
+            else:
+                state, statics, slot, aux = advance(i, state, statics, slot)
+        return state, statics, slot, aux
+
     frames = []
     if include_t0:
         frames.append(observe(state, statics, StepAux(dens_prop=state.rays.dens)))
-    with torch.no_grad():
-        for i in range(run.n_steps):
-            if use_sort and i % sort_every == 0:
-                key = torch.where(statics.active, state.rays.r,
-                                  torch.full_like(state.rays.r, math.inf))
-                order = torch.argsort(key, stable=True)
-                state = state._replace(rays=_gather(state.rays, order))
-                statics = _gather(statics, order)
-                slot = slot[order]
-            if wind_fn is not None:
-                t = t0 + torch.tensor(float(i), dtype=t_dtype) * run.dt
-                u, v = wind_fn(t)
-                mean = state.mean
-                state = state._replace(mean=mean._replace(
-                    u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
-            state, statics, aux = step(run.dt, state, statics, bg, cfg, None, rhs)
-            if cfg.relaunch and source is not None:
-                template = source(source_key) if keyed_source else source
-                if use_sort:
-                    template = _gather(template, slot)
-                if relaunch_every <= 1 or i % relaunch_every == 0:
-                    state, statics = _sources.relaunch(state, statics, template)
-            if (i + 1) % run.save_every == 0:
-                frames.append(observe(*unsorted(state, statics, aux)))
+    for b in range(run.n_steps // run.save_every):
+        if remat:
+            state, statics, slot, aux = _checkpoint(block, key, b, state,
+                                                    statics, slot)
+        else:
+            state, statics, slot, aux = block(b, state, statics, slot)
+        frames.append(observe(*unsorted(state, statics, aux, slot)))
     if use_sort:
-        state, statics, _ = unsorted(state, statics, ())
+        state, statics, _ = unsorted(state, statics, (), slot)
     if include_t0 and len(frames) > 1:
         # frame 0 takes the history's dtypes, as in the JAX package
         frames[0] = tree_map(lambda h0, h: h0.to(h.dtype), frames[0], frames[1])

@@ -10,7 +10,9 @@ padding by copy, the flux divergence and the wind tendencies.
 configuration); ``"pallas"`` runs a fused CUDA kernel with the same torch
 glue around it: K2 (:mod:`msgwam_tpu_torch.ops.rhs_cuda`) at full width
 for ``window_cells=0``, K3 (:mod:`msgwam_tpu_torch.ops.rhs_cuda_windowed`)
-with its per-tile height window otherwise.
+with its per-tile height window otherwise.  Both routes are
+differentiable: the kernels' backward differentiates :func:`ray_tendencies`
+(:mod:`msgwam_tpu_torch.ops.adjoint`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..config import ModelConfig
 from ..constants import RAD_EARTH
 from ..ops.dispersion import cg_r, group_velocities, wavenumber_tendencies
 from ..ops.interp import basis_interp, grid_interp
-from ..ops.projection import project_backend
+from ..ops.projection import abs1, project_backend
 from ..ops.saturation import saturation_tendency
 from ..state import Background, MeanState, RayState, RayStatics, State, coriolis
 
@@ -65,7 +67,7 @@ def rhs(
     if axis_name is not None:
         raise NotImplementedError(
             "ray sharding (axis_name) is not ported yet (ROADMAP queue 1, "
-            "item 9)")
+            "item 8)")
     if cfg.rhs_backend == "pallas":
         return _rhs_via_fused_kernel(dt, state, statics, bg, cfg)
     if cfg.rhs_backend != "xla":
@@ -97,10 +99,23 @@ def _rhs_xla(
     bg: Background,
     cfg: ModelConfig,
 ) -> State:
-    rays, mean = state
+    ray_st, pm_interior = ray_tendencies(dt, state, statics, bg, cfg)
+    du_st, dv_st = _mean_tendencies(pm_interior, state.mean, bg, cfg)
+    return State(ray_st, MeanState(du_st, dv_st))
+
+
+def ray_tendencies(dt, state: State, statics: RayStatics, bg: Background,
+                   cfg: ModelConfig):
+    """The composable path's ray tendencies (a :class:`RayState`, zero on
+    inactive slots, structural zeros as :func:`rhs` gives them) and the
+    ``(2, n_cell - 1)`` interior flux: what a fused RHS kernel returns, and
+    what its backward differentiates (:func:`msgwam_tpu_torch.ops.
+    rhs_cuda.rhs_fused`)."""
+    rays = state.rays
     active = statics.active
 
-    u_ray, v_ray, du_dr, dv_dr = gather_winds(rays, mean, bg, cfg.interp_backend)
+    u_ray, v_ray, du_dr, dv_dr = gather_winds(rays, state.mean, bg,
+                                              cfg.interp_backend)
 
     # Structurally-zero tendencies are Python scalars (0.0): the integrator
     # then leaves those fields untouched.  cg_r is height-independent, so
@@ -142,7 +157,7 @@ def _rhs_xla(
         dens_st = 0.0
 
     # rays → mean flow: pseudo-momentum flux onto the staggered grid
-    phase_vol = torch.abs(statics.dkk * statics.dll * rays.dm)
+    phase_vol = abs1(statics.dkk * statics.dll * rays.dm)
     flux_vals = torch.stack([cgr * rays.k * rays.dens, cgr * rays.l * rays.dens])
     pm_interior = project_backend(cfg.projection_backend)(
         flux_vals,
@@ -154,7 +169,6 @@ def _rhs_xla(
         cfg.max_span,
         accum=cfg.flux_accum,
     )  # (2, n_cell - 1)
-    du_st, dv_st = _mean_tendencies(pm_interior, mean, bg, cfg)
 
     # inactive slots are frozen: zero tendencies everywhere
     def msk(t):
@@ -167,7 +181,7 @@ def _rhs_xla(
         r=msk(drr_st), dr=msk(ddrr_st),
         k=msk(dkk_st), l=msk(dll_st), m=msk(dmm_st), dm=msk(ddmm_st),
     )
-    return State(ray_st, MeanState(du_st, dv_st))
+    return ray_st, pm_interior
 
 
 def _rhs_via_fused_kernel(dt, state, statics, bg, cfg) -> State:

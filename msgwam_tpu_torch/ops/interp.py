@@ -5,7 +5,7 @@ of :mod:`msgwam_tpu.ops.interp`.
   with the same index arithmetic and the same inner-loop expression as the
   JAX package, so that float64 results agree to the last ulps.
 * :func:`basis_matrix` / :func:`basis_interp` — the dense hat-basis form
-  (the ``mxu`` backend), forward only in this port.
+  (the ``mxu`` backend), with the JAX package's residual-free backward.
 """
 
 from __future__ import annotations
@@ -23,16 +23,58 @@ def basis_matrix(x, x0, dx, n: int):
     return torch.clamp(1.0 - torch.abs(t), min=0.0)
 
 
+class _BasisInterp(torch.autograd.Function):
+    """``basis_matrix(x) @ tables`` with the backward of
+    ``msgwam_tpu.ops.interp._basis_interp_bwd``: only the inputs are saved
+    and the basis is rebuilt in the backward, never the ``(n_query,
+    n_table)`` matrix.  The kink conventions are the ones that function
+    implements: the hat's derivative is ``-sgn(t)`` on ``|t| < 1`` with
+    ``sgn(0) = +1``, ``-0.5 sgn(t)`` at ``|t| = 1`` and 0 beyond, and the
+    clip passes a factor 1 inside, 0.5 on a bound and 0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, x0, dx, tables):
+        ctx.save_for_backward(x, x0, dx, tables)
+        return basis_matrix(x, x0, dx, tables.shape[0]) @ tables
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, x0, dx, tables = ctx.saved_tensors
+        n = tables.shape[0]
+        hi = x0 + (n - 1) * dx
+        xc = torch.clamp(x, x0, hi)
+        j = torch.arange(n, dtype=x.dtype, device=x.device)
+        t = (xc[:, None] - x0) / dx - j[None, :]
+        ct_tables = None
+        if ctx.needs_input_grad[3]:
+            ct_tables = torch.clamp(1.0 - torch.abs(t), min=0.0).T @ ct
+        sgn = torch.where(t >= 0, 1.0, -1.0).to(t.dtype)
+        at = torch.abs(t)
+        d_hat = torch.where(at < 1.0, -sgn,
+                            torch.where(at == 1.0, -0.5 * sgn,
+                                        torch.zeros_like(t)))
+        ct_u = (ct * (d_hat @ tables)).sum(dim=1)       # d out / d u, per query
+        clip = torch.where((x > x0) & (x < hi), 1.0,
+                           torch.where((x == x0) | (x == hi), 0.5, 0.0))
+        ct_u = ct_u * clip.to(ct_u.dtype)
+        ct_x = ct_u / dx
+        ct_x0 = -ct_u.sum() / dx
+        ct_dx = -(ct_u * (xc - x0)).sum() / (dx * dx)
+        return ct_x, ct_x0, ct_dx, ct_tables
+
+
 def basis_interp(x, x0, dx, tables):
     """Interpolate one ``(n_table,)`` or stacked ``(n_table, k)`` tables at
     the query points ``x`` through :func:`basis_matrix` and one matmul.
-    ``x0`` and ``dx`` are taken in ``x``'s dtype, as the JAX package does."""
+    ``x0`` and ``dx`` are taken in ``x``'s dtype, as the JAX package does;
+    gradients reach ``x``, ``x0``, ``dx`` and ``tables``
+    (:class:`_BasisInterp`)."""
     squeeze = tables.dim() == 1
     if squeeze:
         tables = tables[:, None]
     x0 = torch.as_tensor(x0, dtype=x.dtype, device=x.device)
     dx = torch.as_tensor(dx, dtype=x.dtype, device=x.device)
-    out = basis_matrix(x, x0, dx, tables.shape[0]) @ tables
+    out = _BasisInterp.apply(x, x0, dx, tables)
     return out[:, 0] if squeeze else out
 
 

@@ -5,7 +5,9 @@ The reference semantics are kept exactly: cell indices from the origin-0
 ratio ``r/dz`` truncated toward zero, both clamped to ``nzmax = len(grid)
 - 2`` (so the top cell never receives flux), an out-of-domain mask, and
 the *absolute value* of the overlap ``|min(grid[c+1], r_up) − max(grid[c],
-r_low)|/dz``.
+r_low)|/dz``, differentiated with the JAX package's ``abs'(0) = 1``
+(:func:`abs1`): the overlap is 0 in the cell above a ray edge that sits
+on a grid face, where torch's ``abs`` would pass no gradient.
 
 Backends (``cfg.projection_backend``):
 
@@ -23,6 +25,13 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def abs1(x):
+    """``|x|`` whose derivative at 0 is 1, as JAX's ``abs`` has it (torch's
+    ``abs`` has 0); the value differs from ``torch.abs`` only in the sign
+    of a zero."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _cell_spans(r_low, r_up, dz, n_points):
@@ -52,7 +61,7 @@ def projection_weights(r_low, r_up, valid, grid, max_span: int):
     cells = torch.clamp(cells, 0, n_points - 2)
     zmin = torch.maximum(grid[cells], r_low[:, None])
     zmax = torch.minimum(grid[cells + 1], r_up[:, None])
-    weights = torch.where(live, torch.abs(zmax - zmin) / dz,
+    weights = torch.where(live, abs1(zmax - zmin) / dz,
                           torch.zeros_like(zmax))
     return cells, weights, live
 
@@ -147,9 +156,66 @@ def _dense_weights(r_low, r_up, phase_vol, valid, grid):
     in_span = (c[None, :] >= nlow[:, None]) & (c[None, :] < nup[:, None])
     zmin = torch.maximum(grid[:-1][None, :], r_low[:, None])
     zmax = torch.minimum(grid[1:][None, :], r_up[:, None])
-    w = torch.abs(zmax - zmin) / dz
+    w = abs1(zmax - zmin) / dz
     return torch.where(in_span & ok[:, None], w, torch.zeros_like(w)) \
         * phase_vol[:, None]
+
+
+class _DenseDeposit(torch.autograd.Function):
+    """``values @ _dense_weights(...)`` with the analytic backward of
+    ``msgwam_tpu.ops.projection._dense_deposit_bwd``: only the inputs are
+    saved and the ``(n, n_cells)`` weights are rebuilt in the backward.
+    Its tie conventions are JAX's: ``abs'(0) = 1``, and a ``maximum`` or
+    ``minimum`` tie splits the gradient 0.5/0.5.  ``valid`` gets none."""
+
+    @staticmethod
+    def forward(ctx, values, r_low, r_up, phase_vol, valid, grid):
+        ctx.save_for_backward(values, r_low, r_up, phase_vol, valid, grid)
+        return values @ _dense_weights(r_low, r_up, phase_vol, valid, grid)
+
+    @staticmethod
+    def backward(ctx, ct):
+        values, r_low, r_up, phase_vol, valid, grid = ctx.saved_tensors
+        n_points = grid.shape[0]
+        n_cells = n_points - 1
+        dz = grid[1] - grid[0]
+        nlow, nup, in_domain = _cell_spans(r_low, r_up, dz, n_points)
+        ok = in_domain if valid is None else (valid & in_domain)
+        c = torch.arange(n_cells, dtype=torch.int64, device=r_low.device)
+        mask = ((c[None, :] >= nlow[:, None]) & (c[None, :] < nup[:, None])
+                & ok[:, None])
+        gl = grid[:-1][None, :]
+        gu = grid[1:][None, :]
+        rl = r_low[:, None]
+        ru = r_up[:, None]
+        d = torch.minimum(gu, ru) - torch.maximum(gl, rl)
+        zero = torch.zeros_like(d)
+        w_raw = abs1(d) / dz                                # before phase_vol
+        w = torch.where(mask, w_raw, zero) * phase_vol[:, None]
+
+        ct_values = ct @ w.T                                # (nvar, n)
+        ctm = torch.where(mask, values.T @ ct, zero)        # (n, n_cells)
+        ct_pv = (ctm * w_raw).sum(dim=1)
+        s = torch.where(d >= 0, 1.0, -1.0).to(d.dtype)      # abs'(0) = 1
+        g_d = ctm * s * (phase_vol[:, None] / dz)           # dL/d d
+        sel_rl = torch.where(rl > gl, 1.0,
+                             torch.where(rl == gl, 0.5, 0.0)).to(d.dtype)
+        sel_ru = torch.where(ru < gu, 1.0,
+                             torch.where(ru == gu, 0.5, 0.0)).to(d.dtype)
+        ct_rl = (g_d * -sel_rl).sum(dim=1)
+        ct_ru = (g_d * sel_ru).sum(dim=1)
+        # the grid: zmin reaches grid[c] where the max took the face, zmax
+        # grid[c + 1] where the min did; dz = grid[1] - grid[0] adds the
+        # 1/dz factor's term
+        g_gl = (g_d * -(1.0 - sel_rl)).sum(dim=0)
+        g_gu = (g_d * (1.0 - sel_ru)).sum(dim=0)
+        ct_dz = -(ctm * w_raw * phase_vol[:, None]).sum() / dz
+        ct_grid = torch.zeros_like(grid)
+        ct_grid[:-1] += g_gl
+        ct_grid[1:] += g_gu
+        ct_grid[0] -= ct_dz
+        ct_grid[1] += ct_dz
+        return ct_values, ct_rl, ct_ru, ct_pv, None, ct_grid
 
 
 def project_dense(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
@@ -157,12 +223,13 @@ def project_dense(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
     """The ``mxu`` backend: the deposit as a dense weight-matrix product.
     Same semantics as :func:`project`, without a span bound (``max_span``
     is accepted and ignored).  ``"native"`` is one ``(nvar, n) @ (n, C)``
-    product; ``"f64"``/``"compensated"`` combine :data:`ACCUM_BLOCK`-ray
-    block partials in float64 / with Kahan compensation."""
+    product (:class:`_DenseDeposit`, whose backward rebuilds the weights);
+    ``"f64"``/``"compensated"`` combine :data:`ACCUM_BLOCK`-ray block
+    partials in float64 / with Kahan compensation."""
     values = torch.atleast_2d(values)
-    w = _dense_weights(r_low, r_up, phase_vol, valid, grid)
     if accum == "native":
-        return values @ w
+        return _DenseDeposit.apply(values, r_low, r_up, phase_vol, valid, grid)
+    w = _dense_weights(r_low, r_up, phase_vol, valid, grid)
     return _reduce_partials(block_partials(values, w), accum, values.dtype)
 
 

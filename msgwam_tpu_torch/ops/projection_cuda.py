@@ -90,8 +90,10 @@ def project_pallas(values, r_low, r_up, phase_vol, valid, grid, max_span=None,
                    accum: str = "native"):
     """Drop-in for :func:`msgwam_tpu_torch.ops.projection.project`
     (float32, at most 2 value rows; ``max_span`` is accepted and ignored).
-    Returns ``(nvar, n_cells)`` float32.  Forward only."""
-    _build.forward_only("project_pallas", values, r_low, r_up, phase_vol, grid)
+    Returns ``(nvar, n_cells)`` float32.  Forward only, as the JAX
+    package's ``project_pallas`` is."""
+    _build.forward_only("project_pallas", "projection_backend='mxu'",
+                        values, r_low, r_up, phase_vol, grid)
     values = torch.atleast_2d(values)
     _check_args(values, r_low, r_up, phase_vol, valid, grid, accum)
     if values.device.type == "cpu":

@@ -50,7 +50,7 @@ import torch
 from .. import _build
 from ..constants import ROT_EARTH
 from ..state import RayStatics, State, coriolis
-from . import ray_physics
+from . import adjoint, ray_physics
 
 LAUNCHES = 0
 
@@ -301,13 +301,29 @@ def check_inputs(state, statics, bg, name: str = "rhs_fused",
 def rhs_fused(dt, state, statics, bg, cfg):
     """Fused-RHS entry point: ``(tendencies, pm_interior)`` where
     ``tendencies`` is ``{"dens", "r", "m"}`` per ray and ``pm_interior``
-    the ``(2, n_cell - 1)`` interior flux profile.  Float32, hprop=False,
-    forward only."""
-    _build.forward_only("rhs_fused", state, statics, bg)
+    the ``(2, n_cell - 1)`` interior flux profile.  Float32, hprop=False.
+    Differentiable in ``dt``, the state, the statics and the background:
+    the backward differentiates the composable path (:func:`fused_plain`)."""
     check_inputs(state, statics, bg)
-    if state.rays.r.device.type == "cpu":
-        return rhs_fused_reference(dt, state, statics, bg, cfg)
-    return launch(inputs(dt, state, statics, bg, cfg), *state.mean)
+
+    def kernel(dt, state, statics, bg):
+        if state.rays.r.device.type == "cpu":
+            return rhs_fused_reference(dt, state, statics, bg, cfg)
+        return launch(inputs(dt, state, statics, bg, cfg), *state.mean)
+
+    return adjoint.kernel_call(kernel, functools.partial(fused_plain, cfg=cfg),
+                               dt, state, statics, bg)
+
+
+def fused_plain(dt, state, statics, bg, cfg):
+    """What the backward of K2 and K3 differentiates: the composable
+    path's ray tendencies and interior flux (``models/rhs.py:
+    ray_tendencies``) in :func:`.adjoint.plain_config`, as the JAX
+    package's ``_rhs_fused_bwd`` differentiates ``_rhs_xla``."""
+    from ..models.rhs import ray_tendencies
+
+    tend, flux = ray_tendencies(dt, state, statics, bg, adjoint.plain_config(cfg))
+    return {"dens": tend.dens, "r": tend.r, "m": tend.m}, flux
 
 
 def launch(inp: Inputs, u, v, work: Scratch = None):

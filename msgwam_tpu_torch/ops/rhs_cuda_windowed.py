@@ -32,7 +32,8 @@ and third stages then update in place, and likewise the wind: the
 caller's state is never modified.
 
 Like K2, both take float32 only: a float64 state raises ``TypeError``
-(the JAX kernels cast it to float32 and back).  Both are forward only.
+(the JAX kernels cast it to float32 and back).  Both are differentiable:
+their backwards run the composable path (:mod:`.adjoint`).
 For CPU tensors each entry point runs its plain twin
 (:func:`rhs_fused_windowed_reference`,
 :func:`rk3_step_fused_windowed_reference`); ``LAUNCHES`` counts kernel
@@ -41,11 +42,13 @@ launches per entry point.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from ..state import MeanState, State
-from . import ray_physics, rhs_cuda
+from . import adjoint, ray_physics, rhs_cuda
 from .rhs_cuda import window_for  # noqa: F401  (the windowed kernels' window)
 
 LAUNCHES = {"rhs_fused_windowed": 0, "rk3_step_fused_windowed": 0}
@@ -108,13 +111,19 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
 def rhs_fused_windowed(dt, state, statics, bg, cfg):
     """Adaptive-window fused-RHS entry point (K3), a drop-in for
     :func:`msgwam_tpu_torch.ops.rhs_cuda.rhs_fused`: returns
-    ``(tendencies, pm_interior)``."""
-    _build.forward_only("rhs_fused_windowed", state, statics, bg)
+    ``(tendencies, pm_interior)``, with K2's backward
+    (:func:`.rhs_cuda.fused_plain`)."""
     rhs_cuda.check_inputs(state, statics, bg, "rhs_fused_windowed")
-    if state.rays.r.device.type == "cpu":
-        return rhs_fused_windowed_reference(dt, state, statics, bg, cfg)
-    outs, flux, _ = launch(rhs_cuda.inputs(dt, state, statics, bg, cfg), *state.mean)
-    return dict(zip(("dens", "r", "m"), outs)), flux
+
+    def kernel(dt, state, statics, bg):
+        if state.rays.r.device.type == "cpu":
+            return rhs_fused_windowed_reference(dt, state, statics, bg, cfg)
+        outs, flux, _ = launch(rhs_cuda.inputs(dt, state, statics, bg, cfg),
+                               *state.mean)
+        return dict(zip(("dens", "r", "m"), outs)), flux
+
+    return adjoint.kernel_call(kernel, functools.partial(rhs_cuda.fused_plain, cfg=cfg),
+                               dt, state, statics, bg)
 
 
 def rhs_fused_windowed_reference(dt, state, statics, bg, cfg):
@@ -204,16 +213,27 @@ def rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name=None):
     """One Williamson RK3 step with the stage arithmetic and the wind's
     update fused into the windowed kernel (K4): three launches per step,
     the new state returned and the caller's left as it was.
-    ``hprop=False``, float32, forward only."""
+    ``hprop=False``, float32.  Differentiable: the backward differentiates
+    the generic RK3 step on the composable RHS (:func:`_rk3_step_plain`),
+    as the JAX package's ``_rk3_step_fused_bwd`` does."""
     if axis_name is not None:
         raise NotImplementedError(
             "ray sharding (axis_name) is not ported yet (ROADMAP queue 1, "
-            "item 9)")
-    _build.forward_only("rk3_step_fused_windowed", state, statics, bg)
+            "item 8)")
     rhs_cuda.check_inputs(state, statics, bg, "rk3_step_fused_windowed")
-    if state.rays.r.device.type == "cuda":
-        return _rk3_step_kernel(dt, state, statics, bg, cfg)
-    return _rk3_step_reference(dt, state, statics, bg, cfg)
+    kernel = (_rk3_step_kernel if state.rays.r.device.type == "cuda"
+              else _rk3_step_reference)
+    return adjoint.kernel_call(functools.partial(kernel, cfg=cfg),
+                               functools.partial(_rk3_step_plain, cfg=cfg),
+                               dt, state, statics, bg)
+
+
+def _rk3_step_plain(dt, state, statics, bg, cfg):
+    from ..models.integrate import williamson_rk3
+    from ..models.rhs import rhs
+
+    xla_cfg = adjoint.plain_config(cfg)
+    return williamson_rk3(lambda s: rhs(dt, s, statics, bg, xla_cfg), state, dt)
 
 
 def rk3_step_fused_windowed_reference(dt, state, statics, bg, cfg, plan=None):

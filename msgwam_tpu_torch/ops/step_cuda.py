@@ -27,7 +27,8 @@ to the streaming kernel K6 (:mod:`msgwam_tpu_torch.ops.step_cuda_stream`),
 the same CUDA template.
 
 Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
-(else ``ValueError``), forward only.  For CPU tensors each launch runs
+(else ``ValueError``); differentiable through the plain path
+(:mod:`.adjoint`).  For CPU tensors each launch runs
 the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
 kernel launches.
 """
@@ -44,7 +45,7 @@ import torch
 from .. import _build
 from ..constants import ROT_EARTH
 from ..state import MeanState, State, tree_map
-from . import ray_physics, rhs_cuda
+from . import adjoint, ray_physics, rhs_cuda
 
 LAUNCHES = 0
 
@@ -341,7 +342,14 @@ def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
     not pay on the H100) route the call, with ``source``,
     ``source_key``, ``t0``, ``launch_sort`` and ``observe``, to
     :func:`msgwam_tpu_torch.ops.step_cuda_stream.simulate_streaming` (K6);
-    K5 runs the rest.  Forward only."""
+    K5 runs the rest.
+
+    K5's run is differentiable in the state, the statics and the
+    background: the backward differentiates :func:`msgwam_tpu_torch.
+    simulate` on the composable path (``window_cells=0``,
+    :func:`.adjoint.plain_config`), as the JAX package's
+    ``simulate_resident`` does (it closes over ``bg``).  The route to K6
+    is forward only, as in the JAX package."""
     from . import step_cuda_stream
 
     if cfg.cull or cfg.relaunch or wind_fn is not None or launch_sort:
@@ -350,9 +358,19 @@ def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
             source=source, wind_fn=wind_fn, t0=t0, launch_sort=launch_sort,
             observe=observe, source_key=source_key)
     del source, source_key, t0
-    _build.forward_only("simulate_resident", state, statics, bg)
-    return _simulate_resident_impl(state, statics, bg, cfg, run,
-                                   include_t0=include_t0, observe=observe)
+
+    def kernel(state, statics, bg):
+        return _simulate_resident_impl(state, statics, bg, cfg, run,
+                                       include_t0=include_t0, observe=observe)
+
+    def plain(state, statics, bg):
+        from ..models.integrate import simulate
+
+        return simulate(state, statics, bg,
+                        adjoint.plain_config(cfg, window_cells=0), run,
+                        observe=observe, include_t0=include_t0, validate=False)
+
+    return adjoint.kernel_call(kernel, plain, state, statics, bg)
 
 
 def check_run(state, cfg, run, name: str) -> None:

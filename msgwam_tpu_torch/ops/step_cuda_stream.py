@@ -30,8 +30,11 @@ Not ported, and why:
 * ``_ablate``, a profiling switch of the TPU kernel.
 * The ``shard_map`` mesh route of the ensemble (``parallel/ensemble.py``
   raises for ``mesh``).
-* The ``custom_vjp``s: every entry point is forward only and raises when
-  an input needs a gradient, as K1-K5 do (ROADMAP queue 1, item 2).
+* A backward for K6: :func:`simulate_streaming` is forward only, as the
+  JAX package's streaming path is, and raises when an input needs a
+  gradient (``simulate`` differentiates the lifecycle).  K7's
+  ``custom_vjp`` is ported: :func:`simulate_streaming_ensemble`'s backward
+  differentiates ``simulate`` member by member (:mod:`.adjoint`).
 * ``LAUNCH_SORT_MIN = 500_000``, measured on a TPU v5e.  On the H100 the
   sort does not pay: over the configs[3] day at 1e6 rays the sorted runs
   took 0.0786 and 0.0795 s against 0.0734 and 0.0741 s unsorted, 7-8% more
@@ -46,13 +49,14 @@ tensors each launch runs the plain twin :func:`step_stream_reference`;
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from .. import _build
 from ..state import MeanState, State, tree_map
-from . import rhs_cuda, step_cuda
+from . import adjoint, rhs_cuda, step_cuda
 from .step_cuda import Lifecycle
 
 LAUNCHES = {"K6": 0, "K7": 0}
@@ -250,7 +254,8 @@ def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
     ``return_final_perm`` the slot permutation of the last launch is
     appended to the return (``perm[i]`` is the slot at internal position
     ``i``; ``arange(n)`` without the sort).  ``tile_rows`` changes nothing
-    (the TPU's streamed tile height).  Forward only."""
+    (the TPU's streamed tile height).  Forward only, as the JAX package's
+    streaming path is: ``simulate`` differentiates the lifecycle."""
     del tile_rows
     do_cull, do_relaunch = _guards(state, cfg, run, "simulate_streaming")
     if do_relaunch and source is None:
@@ -258,7 +263,7 @@ def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
     keyed_source = callable(source)
     if keyed_source and source_key is None:
         raise ValueError("a callable source requires source_key")
-    _build.forward_only("simulate_streaming", state, statics, bg)
+    _build.forward_only("simulate_streaming", "simulate()", state, statics, bg)
     rhs_cuda.check_inputs(state, statics, bg, "simulate_streaming",
                           step_cuda.MAX_PAD)
     from ..models.integrate import StepAux
@@ -361,11 +366,18 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
     is one function of time shared by the members or a sequence of one
     per member.  With ``cfg.relaunch``, ``sources`` is a stacked ``(RayState,
     RayStatics)`` template pair; a callable source raises, as in the JAX
-    package.  Float32, ``hprop=False``, online saturation, forward only.
+    package.  Float32, ``hprop=False``, online saturation.
 
     Returns ``(final_states, statics, mean_history)``: the final states with
     the member axis back, and the mean wind after every launch as a
-    :class:`MeanState` of ``(n_chunks, E, n_cell)``."""
+    :class:`MeanState` of ``(n_chunks, E, n_cell)``.
+
+    Differentiable in the states, the statics and the background: the
+    backward differentiates :func:`msgwam_tpu_torch.simulate` on the
+    composable path member by member, each with its own ``sources`` row
+    and its own ``wind_fn`` (:func:`_ensemble_plain`), as the JAX
+    package's ``simulate_streaming_ensemble`` does; the statics come back
+    as they went in there.  ``sources`` and ``wind_fn`` are constants."""
     del tile_rows
     if not cfg.saturate_online:
         raise ValueError(
@@ -388,7 +400,42 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
         raise ValueError(
             f"per-member wind_fn sequence has {len(wind_fn)} entries "
             f"for {E} ensemble members")
-    _build.forward_only("simulate_streaming_ensemble", states, statics, bg)
+    return adjoint.kernel_call(
+        functools.partial(_ensemble_kernel, cfg=cfg, run=run, sources=sources,
+                          wind_fn=wind_fn, t0=t0, do_cull=do_cull,
+                          do_relaunch=do_relaunch),
+        functools.partial(_ensemble_plain, cfg=cfg, run=run, sources=sources,
+                          wind_fn=wind_fn, t0=t0),
+        states, statics, bg)
+
+
+def _ensemble_plain(states, statics, bg, cfg, run, sources, wind_fn, t0):
+    """What K7's backward differentiates: ``simulate`` on the composable
+    path, member by member; the statics are returned as they came."""
+    from ..models.integrate import simulate
+
+    xla_cfg = adjoint.plain_config(cfg, window_cells=0)
+    finals, means = [], []
+    for e in range(states.rays.r.shape[0]):
+        member = lambda tree: tree_map(lambda x: x[e], tree)
+        final, _, hist = simulate(
+            member(states), member(statics), bg, xla_cfg, run,
+            source=None if sources is None else member(sources),
+            wind_fn=wind_fn[e] if isinstance(wind_fn, (list, tuple)) else wind_fn,
+            t0=t0, validate=False)
+        finals.append(final)
+        means.append(hist[0].mean)
+    stack = lambda *xs: torch.stack(xs, dim=0)
+    mean_hist = tree_map(lambda *xs: torch.stack(xs, dim=1), *means)
+    return tree_map(stack, *finals), statics, mean_hist
+
+
+def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
+                     do_cull, do_relaunch):
+    """The K7 launches of :func:`simulate_streaming_ensemble`."""
+    rays, mean = states.rays, states.mean
+    E, n = rays.r.shape
+    per_member_wind = isinstance(wind_fn, (list, tuple))
     flat_rays, flat_statics = _flat(rays), _flat(statics)
     flat_state = State(flat_rays, MeanState(mean.u[0], mean.v[0]))
     rhs_cuda.check_inputs(flat_state, flat_statics, bg,

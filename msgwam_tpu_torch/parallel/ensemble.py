@@ -10,7 +10,7 @@ vmaps its scan over the members or maps it (``sequential``); torch has no
 vmap of this Python loop, so the port always runs the members in turn and
 ``sequential`` changes nothing.  A ``mesh`` (the JAX package's
 ``shard_map`` over devices) raises: one H100 has no second device, and
-sharding is ROADMAP queue 1, item 9.
+sharding is ROADMAP queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "ensemble sharding over a device mesh is not ported (ROADMAP "
-            "queue 1, item 9); one H100 runs every member")
+            "queue 1, item 8); one H100 runs every member")
 
 
 def ensemble_simulate(

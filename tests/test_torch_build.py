@@ -2,8 +2,8 @@
 ``ctypes`` signatures in ``msgwam_tpu_torch/_build.py`` against the
 ``extern "C"`` declarations of ``msgwam_tpu_torch/csrc/*.cu`` (a pointer
 passed where ctypes expects an int is cut to 32 bits without a word), and
-the guard that every kernel entry point raises instead of returning a
-result without a gradient."""
+the guard that the entry points without a backward (K1, K6) raise instead
+of returning a result without a gradient."""
 
 import ctypes
 import re
@@ -93,15 +93,25 @@ ENTRY_POINTS = {
 }
 
 
+FORWARD_ONLY = {"project_pallas", "simulate_streaming"}
+
+
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_kernel_entry_points_refuse_gradients(entry):
-    """With grad mode on and an input that needs a gradient, each entry
-    point of K1-K7 raises and names the ROADMAP item of the adjoint, on
-    the CPU as on the card; under ``torch.no_grad()`` it runs."""
+    """With grad mode on and an input that needs a gradient, the entry
+    points without a backward, K1 and K6, raise and name the
+    differentiable route, on the CPU as on the card, as in the JAX
+    package; K2-K5 and K7 record their backward instead.  Under
+    ``torch.no_grad()`` each runs."""
     cfg, bg, state, statics = _bench_inputs()
     call = ENTRY_POINTS[entry]
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        call(cfg, bg, _with_grad(state), statics)
+    if entry in FORWARD_ONLY:
+        with pytest.raises(NotImplementedError,
+                           match="forward only, as in the JAX package"):
+            call(cfg, bg, _with_grad(state), statics)
+    else:
+        out = call(cfg, bg, _with_grad(state), statics)
+        assert any(t.grad_fn is not None for t in _build._tensors(out))
     with torch.no_grad():
         out = call(cfg, bg, _with_grad(state), statics)
     # nothing needs a gradient: it runs with grad mode on, too

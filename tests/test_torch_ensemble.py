@@ -183,7 +183,7 @@ def test_ensemble_rejections():
                           sequential=True)
     with pytest.raises(ValueError, match="backend"):
         ensemble_simulate(states, statics, bg, cfg, RUN, backend="vmap")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         ensemble_simulate(states, statics, bg, cfg, RUN, mesh=object())
 
 

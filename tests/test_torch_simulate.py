@@ -152,9 +152,10 @@ def test_unported_options_raise_and_inputs_are_validated():
     cfg, bg, state, statics = _reference_setup()
     s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=2, save_every=1)
-    for kw in (dict(remat=True), dict(axis_name="rays")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mtt.simulate(s, st, b, tcfg, run, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mtt.simulate(s, st, b, tcfg, run, axis_name="rays")
+    with pytest.raises(ValueError, match="remat"):
+        mtt.simulate(s, st, b, tcfg, run, remat="blocks")
     with pytest.raises(ValueError, match="source_key"):
         mtt.simulate(s, st, b, tcfg.replace(relaunch=True), run,
                      source=lambda key: (s.rays, st))
