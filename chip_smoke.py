@@ -92,12 +92,30 @@ use), then, in order:
    rays over 100 steps (the forward bitwise the same, the gradient within
    1e-6) and with ``"full"`` at 1e6 rays over 20 steps, each with its
    forward and backward wall time and ``torch.cuda.max_memory_allocated``;
-   and K1 and K6 refusing an input that needs a gradient.
+   and K1 and K6 refusing an input that needs a gradient;
+14. the driver, ``msgwam_tpu_torch.cli.main(["run", ...])`` in-process on
+   the card with ``--no-plot`` into a temporary directory: the ``fast``
+   preset (1e5 rays, 720 steps, float32) with ``--kernels mxu`` (the plain
+   route), ``pallas`` (exactly 3 x 720 K2 launches), ``windowed`` (3 x 720
+   K4) and ``mega`` (72 K5), each kernel route's first saved frame (step
+   10) of flux and wave action within 1e-4 of the plain route's, no
+   fallback printed, and the same spec in float64 on ``--kernels xla`` as
+   the oracle of each route's day-end flux (reported); ``mega`` for 360
+   steps and ``--resume`` for 360 more, bitwise the 720-step run;
+   ``examples/config4.json`` as written (K6, 10 launches) with ``--log-every
+   100 --stream-history`` through the native writer, the streamed file read
+   back equal to ``diagnostics.npz``'s u, v, and again without
+   ``--stream-history``; a config file with a file-level ``"kernels":
+   "windowed"``, ``"integrator": "rk4"`` and ``"projection_backend":
+   "pallas"`` at 1e5 rays for 20 steps: 80 K3 launches and 4 K1 calls
+   (two a saved frame) and finite diagnostics.  Walls: the steps
+   (``--log-every`` chunks, behind a synchronize) and the whole command.
 
-Every kernel's entry in the summary line carries its bound: the larger of
+Every kernel's entry in the summary line carries its bound, the larger of
 its bytes over the H100's memory rate and its operations over its f32 rate
 (``bound``; operations counted from ``csrc/ray_physics.cuh``, the deposit's
-by the cells this run's rays cover).
+by the cells this run's rays cover), and the command-line route that
+reaches it (``cli``, with its launches in [14], ``cli_launches``).
 
 Any failed check raises and the exit code is nonzero.  Without a CUDA
 device the script fails at once.  Its second-to-last lines are a JSON
@@ -107,23 +125,29 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import msgwam_tpu_torch as mtt
-from msgwam_tpu_torch import _build
+from msgwam_tpu_torch import _build, cli
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
 from msgwam_tpu_torch.ops.dispersion import cg_r
 from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
                                   rhs_cuda_windowed, step_cuda, step_cuda_stream)
 from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
 from msgwam_tpu_torch.state import tree_map
+from msgwam_tpu_torch.utils import history_io
 
 SEED = 0
 N_MAIN = 100_000
@@ -394,7 +418,7 @@ def phase_k1(args, label: str) -> dict:
     mirror = ray_physics.project_plan(n, n_cells, sms)
     check(plan == mirror, f"K1 ({label}): plan {plan} against the mirror {mirror}")
     work = projection_cuda.scratch(n, n_cells, grid.device)
-    kernels = kernel_events(lambda: projection_cuda.launch(*args, work=work))
+    kernels = kernel_events(lambda: projection_cuda.launch(*args, work=work), 1)
     res = {
         "n": n, "n_cells": n_cells, "plan": tuple(plan),
         "err_vs_twin": rel(twin, out),
@@ -726,12 +750,18 @@ def phase_k4(state, statics, bg, cfg, label: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def kernel_events(fn) -> dict:
+def kernel_events(fn, launches: int) -> dict:
     """The device kernels ``torch.profiler`` records over one call of
-    ``fn``, counted by name."""
-    counts = {}
-    for e in device_events(profiled(fn)[0]):
-        counts[e.name] = counts.get(e.name, 0) + 1
+    ``fn``, counted by name.  The profiler can drop a kernel of its window
+    (once on the card: two of a K4 step's three), so a window that records
+    fewer than the call's ``launches`` is profiled again, three windows at
+    most; one that records as many or more is returned as it is."""
+    for _ in range(3):
+        counts = {}
+        for e in device_events(profiled(fn)[0]):
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if sum(counts.values()) >= launches:
+            break
     return counts
 
 
@@ -772,7 +802,7 @@ def phase_path_a(device, smi: str) -> dict:
             k4_calls = launches()["K4"]
             reset_launches()
             kernels = kernel_events(lambda: rhs_cuda_windowed.rk3_step_fused_windowed(
-                DT, state, statics, bg, cfg))
+                DT, state, statics, bg, cfg), 3)
             per_call = launches()["K4"]
             log(f"[6]   profiler over 10 steps: {prof}; K4 launches {k4_calls}; "
                 f"the device kernels of one K4 step ({per_call} launches): "
@@ -1521,6 +1551,216 @@ def phase_adjoint(device, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# [14] the driver: msgwam_tpu_torch.cli.main, in-process, on the card
+# ---------------------------------------------------------------------------
+
+CONFIG4 = Path(__file__).resolve().parent / "examples" / "config4.json"
+DRIVER_ROUTES = ("mxu", "pallas", "windowed", "mega")  # the plain route first
+DRIVER_K13_STEPS = 20
+
+
+class Progress(logging.Handler):
+    """Keeps the driver's progress records (``MetricsLogger``: step, total,
+    percent, steps/s since the previous record)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.args)
+
+
+def cli_run(what: str, args: list, out: Path, **want) -> dict:
+    """One ``msgwam_tpu_torch run ... --no-plot --out out`` through
+    ``cli.main`` with every launch count set to 0 just before it: its
+    printed lines, its wall, the seconds of its progress chunks (with
+    ``--log-every``: the steps themselves, behind a synchronize) and its
+    diagnostics.  Fails unless the kernels in ``want`` were launched
+    exactly so often and no other."""
+    progress = Progress()
+    logger = logging.getLogger("msgwam_tpu_torch")
+    logger.addHandler(progress)
+    logger.setLevel(logging.INFO)
+    printed = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            cli.main(["run", *args, "--out", str(out), "--no-plot"])
+    finally:
+        logger.removeHandler(progress)
+    wall = time.perf_counter() - t0
+    counts = expect_launches(what, **want)
+    chunk_s = 0.0
+    last = 0
+    for step, _, _, rate, _ in progress.records:
+        chunk_s += (step - last) / rate
+        last = step
+    diag = dict(np.load(out / "diagnostics.npz"))
+    check(all(np.all(np.isfinite(diag[k])) for k in
+              ("wave_action", "flux", "tendency", "u", "v")),
+          f"{what}: non-finite diagnostics")
+    return {"printed": printed.getvalue(), "wall_s": wall,
+            "sim_wall_s": chunk_s, "launches": counts, "diag": diag}
+
+
+def rel_np(a, b) -> float:
+    a, b = np.float64(a), np.float64(b)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(a)) + 1e-300))
+
+
+def same_npz(a: Path, b: Path, skip=("__msgwam_manifest__",)) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files if k not in skip)
+
+
+def phase_driver(smi: str) -> dict:
+    """``python -m msgwam_tpu_torch run`` in-process at the ``fast`` preset's
+    full width through every kernel route, a resumed run, configs[3] from
+    ``examples/config4.json`` with streamed history, and K1 + K3 from a
+    config file."""
+    fast = cli.FAST_PRESET
+    n, steps = fast["source"]["n_ray"], fast["run"]["n_steps"]
+    save = fast["run"]["save_every"]
+    frames = steps // save
+    want = {"mxu": {}, "pallas": {"K2": 3 * steps},
+            "windowed": {"K4": 3 * steps}, "mega": {"K5": frames}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the float64 oracle: the fast spec in float64 on the xla route
+        # (scatter sums in float64, so flux_accum "native")
+        oracle = json.loads(json.dumps(fast))
+        oracle["dtype"] = "float64"
+        oracle["model"]["flux_accum"] = "native"
+        (tmp / "oracle.json").write_text(json.dumps(oracle))
+        runs = {}
+        log_every = ["--log-every", str(steps)]
+        for route in DRIVER_ROUTES:
+            runs[route] = cli_run(f"--kernels {route}",
+                                  ["--preset", "fast", "--kernels", route,
+                                   *log_every], tmp / route, **want[route])
+            check("falling back" not in runs[route]["printed"],
+                  f"--kernels {route} fell back")
+        runs["f64 xla"] = cli_run(
+            "f64 oracle", ["--config", str(tmp / "oracle.json"), "--kernels",
+                           "xla", *log_every], tmp / "oracle")
+        plain = runs["mxu"]["diag"]
+        oracle_flux = runs["f64 xla"]["diag"]["flux"]
+        # the flux against the oracle's along the day, at these frames
+        along = sorted({0, frames // 4, frames // 2, 3 * frames // 4,
+                        frames - 1})
+        for route, r in runs.items():
+            d = r["diag"]
+            check(d["flux"].shape == (frames, fast["grid"]["n_face"] - 2),
+                  f"{route}: diagnostics shape {d['flux'].shape}")
+            r["first_frame_err"] = {k: rel_np(plain[k][0], d[k][0])
+                                    for k in ("flux", "wave_action")}
+            r["day_end_flux_err_vs_f64"] = rel_np(oracle_flux[-1],
+                                                  d["flux"][-1])
+            r["flux_err_vs_f64_by_step"] = {
+                (i + 1) * save: rel_np(oracle_flux[i], d["flux"][i])
+                for i in along}
+            r["day_end_flux_err_vs_plain"] = rel_np(plain["flux"][-1],
+                                                    d["flux"][-1])
+            r["day_end_max_u"] = float(np.max(np.abs(d["u"][-1])))
+            if route in want and route != "mxu":
+                check(max(r["first_frame_err"].values()) < TRAJ_BAR,
+                      f"--kernels {route}: step {save} off the plain route: "
+                      f"{r['first_frame_err']}")
+            name = (f"--kernels {route}" if route in want
+                    else "the float64 oracle (--kernels xla)")
+            log(f"[14] {name} n={n}, {steps} steps: launches "
+                f"{r['launches']}, sim_day_wall_s {r['sim_wall_s']:.4f} "
+                f"(the whole run {r['wall_s']:.3f} s) on {smi}; step {save} "
+                f"vs the plain route {fmt(r['first_frame_err'])}; day-end "
+                f"flux vs the float64 oracle "
+                f"{r['day_end_flux_err_vs_f64']:.3e} (by step: "
+                f"{fmt(r['flux_err_vs_f64_by_step'])}), "
+                f"vs the plain route {r['day_end_flux_err_vs_plain']:.3e}; "
+                f"day-end max |u| {r['day_end_max_u']:.2f} m/s")
+
+        # resume: two mega runs of half a day equal to the day, to the bit
+        half = ["--preset", "fast", "--kernels", "mega", "--steps",
+                str(steps // 2)]
+        first = cli_run("mega, first half", half, tmp / "half_a",
+                        K5=frames // 2)
+        second = cli_run("mega, resumed half", [
+            *half, "--resume", str(tmp / "half_a" / "final_state.npz")],
+            tmp / "half_b", K5=frames // 2)
+        check(f"at step {steps // 2}" in second["printed"],
+              "the resumed run did not say so")
+        resume_bitwise = same_npz(tmp / "mega" / "final_state.npz",
+                                  tmp / "half_b" / "final_state.npz")
+        resume_diag = all(np.array_equal(runs["mega"]["diag"][k][frames // 2:],
+                                         second["diag"][k])
+                          for k in ("wave_action", "flux", "u", "time"))
+        log(f"[14] resume: mega {steps // 2} + {steps // 2} steps against "
+            f"{steps}: final state bitwise {resume_bitwise}, diagnostics "
+            f"bitwise {resume_diag} (walls {first['wall_s']:.3f}, "
+            f"{second['wall_s']:.3f} s)")
+        check(resume_bitwise and resume_diag,
+              "the resumed run differs from the straight run")
+
+        # configs[3] as examples/config4.json writes it, streamed
+        spec4 = json.loads(CONFIG4.read_text())
+        k6 = spec4["run"]["n_steps"] // spec4["run"]["save_every"]
+        every = ["--log-every", str(spec4["run"]["save_every"])]
+        check(history_io._load_native() is not None,
+              "the native history writer did not build")
+        streamed = cli_run("config4.json, streamed",
+                           ["--config", str(CONFIG4), *every,
+                            "--stream-history"], tmp / "c4s", K6=k6)
+        unstreamed = cli_run("config4.json", ["--config", str(CONFIG4),
+                                              *every], tmp / "c4", K6=k6)
+        for r in (streamed, unstreamed):
+            check("falling back" not in r["printed"], "config4.json fell back")
+        hist = history_io.read_state_history(tmp / "c4s" / "state_history.msgw")
+        stream_ok = (hist["dens"].shape == (k6, spec4["source"]["n_ray"])
+                     and np.array_equal(hist["u"], streamed["diag"]["u"])
+                     and np.array_equal(hist["v"], streamed["diag"]["v"]))
+        same_diag = all(np.array_equal(streamed["diag"][k],
+                                       unstreamed["diag"][k])
+                        for k in ("wave_action", "flux", "u", "v"))
+        log(f"[14] config4.json ({spec4['source']['n_ray']} rays, "
+            f"{spec4['run']['n_steps']} steps, K6): launches "
+            f"{streamed['launches']}; streamed file read back equal to "
+            f"diagnostics.npz u, v: {stream_ok}; with --stream-history "
+            f"{streamed['sim_wall_s']:.4f} s of chunks ({streamed['wall_s']:.3f}"
+            f" s in all), without {unstreamed['sim_wall_s']:.4f} s "
+            f"({unstreamed['wall_s']:.3f} s) on {smi}; diagnostics of the "
+            f"two runs bitwise {same_diag}")
+        check(stream_ok, "the streamed history differs from diagnostics.npz")
+
+        # K1 and K3 from a config file: a file-level "windowed" (the step
+        # through K3 with rk4, four launches a step) and the diagnostics
+        # through K1 (two calls a frame)
+        spec13 = json.loads(json.dumps(fast))
+        spec13["kernels"] = "windowed"
+        spec13["model"].update(projection_backend="pallas", integrator="rk4")
+        spec13["run"]["n_steps"] = DRIVER_K13_STEPS
+        (tmp / "k13.json").write_text(json.dumps(spec13))
+        k13 = cli_run("K1 + K3 config", ["--config", str(tmp / "k13.json")],
+                      tmp / "k13", K3=4 * DRIVER_K13_STEPS,
+                      K1=2 * DRIVER_K13_STEPS // save)
+        log(f"[14] K1 + K3 config (file-level windowed, rk4, "
+            f"projection_backend pallas), n={n}, {DRIVER_K13_STEPS} steps: "
+            f"launches {k13['launches']}, finite diagnostics, "
+            f"{k13['wall_s']:.3f} s")
+
+    for r in (*runs.values(), first, second, streamed, unstreamed, k13):
+        del r["diag"], r["printed"]
+    return {"routes": runs,
+            "resume": {"bitwise": resume_bitwise,
+                       "diagnostics_bitwise": resume_diag},
+            "config4": {"streamed": streamed, "unstreamed": unstreamed,
+                        "stream_read_back": stream_ok,
+                        "diagnostics_bitwise": same_diag},
+            "k1_k3": k13}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1569,12 +1809,20 @@ def main() -> int:
     sort = phase_launch_sort(device, smi)
     path_e = phase_path_e(device, smi)
     adjoint = phase_adjoint(device, smi)
+    driver = phase_driver(smi)
+    cli_launches = {k: v for r in driver["routes"].values()
+                    for k, v in r["launches"].items() if v}
+    cli_launches.update(K1=driver["k1_k3"]["launches"]["K1"],
+                        K3=driver["k1_k3"]["launches"]["K3"],
+                        K6=driver["config4"]["streamed"]["launches"]["K6"])
 
     kernels = [
         {"name": "K1 flux deposit (project_pallas)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/projection.cu",
          "replaces": "msgwam_tpu/ops/projection_pallas.py:109",
          "launches": route["launches"], "redesigned": 6,
+         "cli": '"projection_backend": "pallas" in a config file',
+         "cli_launches": cli_launches["K1"],
          "max_abs_err": max(r["max_abs_err"] for r in (*k1.values(),
                                                        *route["k1"].values())),
          **timing(k1[f"random_{N_MAIN}"])},
@@ -1582,6 +1830,7 @@ def main() -> int:
          "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
          "launches": k2_day["launches"], "redesigned": 5,
+         "cli": "--kernels pallas", "cli_launches": cli_launches["K2"],
          "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"],
                             k2_spread_1e6["max_abs_err"]),
          **timing(k2_spread)},
@@ -1589,27 +1838,34 @@ def main() -> int:
          "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:338",
          "launches": path_a["k3_launches"], "redesigned": 5,
+         "cli": '"kernels": "windowed" with "integrator": "rk4" in a config file',
+         "cli_launches": cli_launches["K3"],
          "max_abs_err": max(k3[N_MAIN]["max_abs_err"], k3["mixed"]["max_abs_err"]),
          **timing(k3[N_MAIN])},
         {"name": "K4 stage-fused windowed RHS (rk3_step_fused_windowed)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/rhs_windowed.cu",
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
          "launches": path_a["launches"], "redesigned": 5,
+         "cli": "--kernels windowed", "cli_launches": cli_launches["K4"],
          "max_abs_err": path_a["max_abs_err"], **timing(path_a)},
         {"name": "K5 whole-run kernel (simulate_resident)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
          "launches": path_b["launches"], "redesigned": 4,
+         "cli": "--kernels mega", "cli_launches": cli_launches["K5"],
          "max_abs_err": path_b["max_abs_err"], **timing(path_b)},
         {"name": "K6 whole-run kernel with the lifecycle (simulate_streaming)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
          "launches": path_d["launches"], "redesigned": 4,
+         "cli": "--kernels mega with the lifecycle or a tidal background "
+                "(examples/config4.json)", "cli_launches": cli_launches["K6"],
          "max_abs_err": path_d["max_abs_err"], **timing(path_d)},
         {"name": "K7 ensemble whole-run kernel (simulate_streaming_ensemble)",
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
          "launches": path_e["launches"], "redesigned": 4,
+         "cli": None, "cli_launches": 0,
          "max_abs_err": path_e["max_abs_err"], **timing(path_e)},
     ]
     summary = {
@@ -1619,7 +1875,8 @@ def main() -> int:
         "k3": {str(n): v for n, v in k3.items()},
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
         "k1_route": route, "path_d": path_d, "launch_sort": sort,
-        "path_e": path_e, "adjoint": adjoint, "build_s": build_s,
+        "path_e": path_e, "adjoint": adjoint, "driver": driver,
+        "build_s": build_s,
     }
     log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels

@@ -26,6 +26,12 @@ has them: through :func:`simulate` (with ``remat`` True or ``"full"``:
 (residual-free backwards with the JAX package's tie conventions), and the
 kernel routes K2-K5 and K7, whose backwards differentiate the plain path
 (``ops/adjoint.py``).  K1 and K6 are forward only, as in the JAX package.
+
+Around the core, as in the JAX package: the experiment driver
+(``python -m msgwam_tpu_torch run``, :mod:`.cli`), the reference
+``libprop`` shim (:mod:`.api`), the conservation diagnostics
+(:mod:`.diagnostics`), checkpoints, metrics, profiling and streamed
+history files (:mod:`.utils`), and plots (:mod:`.plotting`).
 """
 
 from .config import GridConfig, ModelConfig, RunConfig, REFERENCE_RUN_CONFIG  # noqa: F401
@@ -65,10 +71,13 @@ from .ops import (  # noqa: F401
     grid_interp,
     omega,
     project,
+    project_reference_variant,
     saturate_direct,
     saturation_tendency,
+    uniform_interp,
     wavenumber_tendencies,
 )
+from .ops.interp import interp  # noqa: F401
 from .ops.step_cuda import simulate_resident  # noqa: F401
 from .ops.step_cuda_stream import simulate_streaming_ensemble  # noqa: F401
 

@@ -1,6 +1,16 @@
 """Diagnostics of the port: the counterpart of :mod:`msgwam_tpu.diagnostics`.
 
-Ported: the window mirror of the windowed kernels K3-K6
+The reference driver's conservation diagnostics (``raytracer.py:194-240``):
+:func:`wave_action_history` (wave action, its flux and the flux's
+tendency over a stacked history), :func:`reference_window_diagnostics`
+(the same frame for frame with the driver's window arithmetic and index
+quirk 3) and :func:`pseudo_momentum_flux`.  The JAX package ``vmap``s over
+the frames; the port loops over them, one frame's deposits at a time
+through ``project_backend(cfg.projection_backend)``, so the dense ``mxu``
+weight is never stacked over frames, and ``"pallas"`` is two K1 calls a
+frame.
+
+The window mirror of the windowed kernels K3-K6
 (``msgwam_tpu/diagnostics.py:206-338``): which tiles of the current ray
 layout a kernel would run in its first window, its second tier or at full
 width.  It mirrors **the port's** kernels, whose tile is 256 rays (the
@@ -10,8 +20,7 @@ active ray never falls back.  :func:`stage_partials`: the flux partials
 each block of the per-stage kernels K2-K4 publishes under their block plan
 (:func:`msgwam_tpu_torch.ops.ray_physics.stage_plan`, the plan the kernels
 and their twins take).  And :func:`internal_ray_layout`, the layout the
-launch-sorted K6 saw.  The rest of the JAX module (wave-action histories,
-the reference window diagnostics) is ROADMAP queue 1, item 4.
+launch-sorted K6 saw.
 """
 
 from __future__ import annotations
@@ -20,8 +29,122 @@ from typing import NamedTuple
 
 import torch
 
+from .config import ModelConfig
 from .ops import ray_physics, rhs_cuda
-from .state import State, tree_map
+from .ops.dispersion import cg_r
+from .ops.projection import project_backend
+from .state import Background, State, tree_map
+
+
+class WaveActionDiagnostics(NamedTuple):
+    wave_action: torch.Tensor  # (n_t, n_face - 1)  on the face grid cells
+    flux: torch.Tensor         # (n_t, n_cell - 1)  on the center-grid cells
+    tendency: torch.Tensor     # (n_t, n_cell)      -d(flux)/dz, zero-padded
+
+
+def _project_frame(dens, phi, r, dr, k, l, m, dm, dkk, dll, active,
+                   grid, bvf, max_span, with_flux: bool, backend: str = "xla"):
+    phase_vol = torch.abs(dkk * dll * dm)
+    vals = cg_r(k, l, m, phi, bvf) * dens if with_flux else dens
+    return project_backend(backend)(
+        vals, r - 0.5 * dr, r + 0.5 * dr, phase_vol, active, grid, max_span
+    )[0]
+
+
+def _frame(history_rays, history_active, i: int, statics, bg: Background,
+           cfg: ModelConfig):
+    """Frame ``i``'s wave action on the face grid and its wave-action flux
+    on the center grid."""
+    rays = tree_map(lambda x: x[i], history_rays)
+    args = (rays.dens, rays.phi, rays.r, rays.dr, rays.k, rays.l, rays.m,
+            rays.dm, statics.dkk, statics.dll, history_active[i])
+    kw = dict(bvf=cfg.bvf, max_span=cfg.max_span,
+              backend=cfg.projection_backend)
+    return (_project_frame(*args, bg.faces, with_flux=False, **kw),
+            _project_frame(*args, bg.centers, with_flux=True, **kw))
+
+
+def _tendency(flux, bg: Background):
+    """-d(flux)/dz on the interior, zero at both profile edges."""
+    dz = bg.faces[1] - bg.faces[0]
+    interior = -(flux[:, 1:] - flux[:, :-1]) / dz
+    pad = torch.zeros((flux.shape[0], 1), dtype=flux.dtype, device=flux.device)
+    return torch.cat([pad, interior, pad], dim=1)
+
+
+def wave_action_history(history_rays, history_active, statics,
+                        bg: Background, cfg: ModelConfig
+                        ) -> WaveActionDiagnostics:
+    """The reference's conservation diagnostics over a stacked history
+    (leading time axis on every ray field), one frame at a time:
+
+    * wave action (var=2) projected onto the *face* grid
+      (``raytracer.py:210-223``),
+    * wave-action flux (var=1) onto the *center* grid
+      (``raytracer.py:225-231``),
+    * tendency = -Δflux/Δz, zero at the profile edges
+      (``raytracer.py:234-237``).
+    """
+    wa, flux = zip(*(_frame(history_rays, history_active, i, statics, bg, cfg)
+                     for i in range(history_rays.dens.shape[0])))
+    flux = torch.stack(flux)
+    return WaveActionDiagnostics(torch.stack(wa), flux, _tendency(flux, bg))
+
+
+def reference_window_diagnostics(history_rays, history_active, statics,
+                                 bg: Background, cfg: ModelConfig
+                                 ) -> WaveActionDiagnostics:
+    """Frame-for-frame reproduction of the reference driver's diagnostics
+    block (``raytracer.py:194-240``), including its window arithmetic and
+    index quirks.  Expects a *full-rate* history that includes the initial
+    condition as frame 0 (``simulate(..., save_every=1, include_t0=True)``:
+    ``n_frames = n_steps + 1``).
+
+    With ``nproj1 = n_frames - 4`` (``raytracer.py:198``):
+
+    * ``wave_action`` has ``nproj1`` rows; rows ``0 .. nproj1-3`` are var=2
+      projections of those frames onto the face grid; row ``nproj1-2`` is
+      never filled (stays zero, ``raytracer.py:210-212``); row ``nproj1-1``
+      is built from frame ``nproj1-1`` except ``rr_up``, which quirk 3
+      reads from frame 0 (``raytracer.py:221``).
+      ``cfg.faithful_diag_index=False`` corrects the index (the zero row
+      is kept either way).
+    * ``flux`` has ``nproj1 - 1`` rows; rows ``0 .. nproj1-3`` are var=1
+      projections onto the center grid; the last row stays zero.
+    * ``tendency`` is ``-Δflux/Δz`` zero-padded at both profile edges.
+    """
+    n_frames = history_rays.dens.shape[0]
+    nproj1 = n_frames - 4
+    if nproj1 < 3:
+        raise ValueError(
+            f"reference window needs n_frames >= 7, got {n_frames}")
+
+    wa, flux = zip(*(_frame(history_rays, history_active, i, statics, bg, cfg)
+                     for i in range(nproj1 - 2)))
+
+    # the quirked last wave-action row (raytracer.py:219-223)
+    last = tree_map(lambda x: x[nproj1 - 1], history_rays)
+    src = tree_map(lambda x: x[0], history_rays) if cfg.faithful_diag_index \
+        else last
+    wa_last = project_backend(cfg.projection_backend)(
+        last.dens, last.r - 0.5 * last.dr, src.r + 0.5 * src.dr,
+        torch.abs(statics.dkk * statics.dll * last.dm),
+        history_active[nproj1 - 1], bg.faces, cfg.max_span)[0]
+
+    wa = torch.stack([*wa, torch.zeros_like(wa[0]), wa_last])
+    flux = torch.stack([*flux, torch.zeros_like(flux[0])])
+    return WaveActionDiagnostics(wa, flux, _tendency(flux, bg))
+
+
+def pseudo_momentum_flux(rays, statics, bg: Background, cfg: ModelConfig):
+    """Pseudo-momentum flux profile (u, v components) on the center grid:
+    the wave→mean-flow observable (``lib/libprop.py:96,146-163``)."""
+    phase_vol = torch.abs(statics.dkk * statics.dll * rays.dm)
+    cgr = cg_r(rays.k, rays.l, rays.m, rays.phi, cfg.bvf)
+    vals = torch.stack([cgr * rays.k * rays.dens, cgr * rays.l * rays.dens])
+    return project_backend(cfg.projection_backend)(
+        vals, rays.r - 0.5 * rays.dr, rays.r + 0.5 * rays.dr,
+        phase_vol, statics.active, bg.centers, cfg.max_span)
 
 
 def internal_ray_layout(state, statics, perm):

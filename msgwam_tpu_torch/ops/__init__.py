@@ -4,7 +4,9 @@ kernels K1 (``projection_cuda``), K2 (``rhs_cuda``), K3/K4
 (``rhs_cuda_windowed``), K5 (``step_cuda``) and K6/K7
 (``step_cuda_stream``), whose twins share ``ray_physics``."""
 
-from .interp import basis_interp, basis_matrix, grid_interp  # noqa: F401
+# ``interp`` (the function) stays out of this namespace, where the name is
+# the submodule's
+from .interp import basis_interp, basis_matrix, grid_interp, uniform_interp  # noqa: F401
 from .dispersion import (  # noqa: F401
     omega,
     group_velocities,
@@ -15,6 +17,8 @@ from .projection import (  # noqa: F401
     project,
     project_backend,
     project_dense,
+    project_interfaces,
+    project_reference_variant,
     projection_weights,
     required_span,
 )

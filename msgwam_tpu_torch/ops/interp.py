@@ -1,6 +1,8 @@
 """Linear interpolation of grid profiles onto ray heights: the counterpart
 of :mod:`msgwam_tpu.ops.interp`.
 
+* :func:`interp` — ``np.interp`` on any sorted grid (``searchsorted``);
+  :func:`uniform_interp` — on a uniform grid given by origin and step.
 * :func:`grid_interp` — ``np.interp`` on a uniform, materialised grid,
   with the same index arithmetic and the same inner-loop expression as the
   JAX package, so that float64 results agree to the last ulps.
@@ -11,6 +13,32 @@ of :mod:`msgwam_tpu.ops.interp`.
 from __future__ import annotations
 
 import torch
+
+
+def interp(x, xp, fp):
+    """``np.interp`` semantics for a sorted 1-D ``xp``: linear inside,
+    clamped to ``fp[0]`` / ``fp[-1]`` outside.  General (non-uniform)
+    grid."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0, n - 2)
+    x0 = xp[i]
+    f0 = fp[i]
+    # numpy's compiled inner-loop arithmetic: slope*(x - x0) + f0, clamped
+    inner = (fp[i + 1] - f0) / (xp[i + 1] - x0) * (x - x0) + f0
+    return torch.where(x <= xp[0], fp[0], torch.where(x >= xp[-1], fp[-1], inner))
+
+
+def uniform_interp(x, x0, dx, fp):
+    """``np.interp`` on a uniform grid ``xp[j] = x0 + j*dx``: index
+    arithmetic instead of a search, with numpy's inner-loop expression."""
+    n = fp.shape[0]
+    t = (x - x0) / dx
+    i = torch.clamp(torch.floor(t).to(torch.int64), 0, n - 2)
+    xi = x0 + i.to(x.dtype) * dx
+    f0 = fp[i]
+    inner = (fp[i + 1] - f0) / dx * (x - xi) + f0
+    return torch.where(x <= x0, fp[0],
+                       torch.where(x >= x0 + (n - 1) * dx, fp[-1], inner))
 
 
 def basis_matrix(x, x0, dx, n: int):

@@ -18,6 +18,9 @@ Backends (``cfg.projection_backend``):
   accumulation of per-block partials;
 * ``"pallas"`` — the hand-written CUDA deposit kernel,
   :func:`msgwam_tpu_torch.ops.projection_cuda.project_pallas`.
+
+:func:`project_interfaces` and :func:`project_reference_variant` are the
+reference's other projection variants, for diagnostics.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .dispersion import cg_r
 
 
 def abs1(x):
@@ -248,6 +253,59 @@ def project_backend(name: str):
             f"unknown projection backend {name!r}; available: "
             f"{sorted(PROJECT_BACKENDS) + ['pallas']}"
         ) from None
+
+
+def project_interfaces(values, r_low, r_up, phase_vol, valid, grid):
+    """Interface-flux projection (reference vars 3-4,
+    ``lib/libprop.py:199-219``): each interior face ``nb`` accumulates the
+    full ``value * phase_vol`` of every ray strictly straddling it
+    (``nlow < nb < nup``).  A dense ``(n, G)`` mask and one matmul
+    (diagnostics only).  Returns ``(nvar, G)``."""
+    values = torch.atleast_2d(values)
+    n_points = grid.shape[0]
+    dz = grid[1] - grid[0]
+    nlow, nup, in_domain = _cell_spans(r_low, r_up, dz, n_points)
+    ok = in_domain if valid is None else (valid & in_domain)
+    nb = torch.arange(n_points, dtype=torch.int64, device=r_low.device)
+    straddle = ((nlow[:, None] < nb[None, :]) & (nup[:, None] > nb[None, :])
+                & ok[:, None] & (nb[None, :] >= 1)
+                & (nb[None, :] < n_points - 1))             # (n, G)
+    w = straddle.to(values.dtype) * phase_vol[:, None]
+    return values @ w                                       # (nvar, G)
+
+
+def project_reference_variant(dens, lam, phi, rr_low, rr_up, kk, ll, mm_low,
+                              mm_up, dkk, dll, dmm, grid, bvf, var: int = 0,
+                              max_span: int = 4, valid=None):
+    """The reference ``wave_projection`` entry point
+    (``lib/libprop.py:92-221``), all five variants:
+
+    * var=0 — pseudo-momentum fluxes (u,v) at cell centers → ``(2, G-1)``
+    * var=1 — vertical wave-action flux at cell centers → ``(G-1,)``
+    * var=2 — wave action at cell centers → ``(G-1,)``
+    * var=3 — wave-action flux at interfaces → ``(G,)``
+    * var=4 — pseudo-momentum fluxes at interfaces → ``(2, G)``
+
+    Like the reference, cg_r is evaluated at ray centers and the
+    phase-space volume is ``|dkk·dll·dmm|``."""
+    phase_vol = torch.abs(dkk * dll * dmm)
+    cgr = cg_r(kk, ll, 0.5 * (mm_low + mm_up), phi, bvf)
+    if var == 0:
+        vals = torch.stack([cgr * kk * dens, cgr * ll * dens])
+        return project(vals, rr_low, rr_up, phase_vol, valid, grid, max_span)
+    if var == 1:
+        return project(cgr * dens, rr_low, rr_up, phase_vol, valid, grid,
+                       max_span)[0]
+    if var == 2:
+        return project(dens, rr_low, rr_up, phase_vol, valid, grid,
+                       max_span)[0]
+    if var == 3:
+        return project_interfaces(cgr * dens, rr_low, rr_up, phase_vol, valid,
+                                  grid)[0]
+    if var == 4:
+        vals = torch.stack([cgr * kk * dens, cgr * ll * dens])
+        return project_interfaces(vals, rr_low, rr_up, phase_vol, valid, grid)
+    raise ValueError(f"unknown projection variant {var}")
 
 
 def required_span(dr_max: float, dz: float) -> int:

@@ -163,8 +163,14 @@ def jax_leaves(tree):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import msgwam_tpu_torch, msgwam_tpu_torch.ops.rhs_cuda, "
-            "msgwam_tpu_torch.ops.projection_cuda; "
-            "assert 'msgwam_tpu' not in sys.modules; print('ok')")
+            "msgwam_tpu_torch.ops.projection_cuda, msgwam_tpu_torch.cli, "
+            "msgwam_tpu_torch.api, msgwam_tpu_torch.diagnostics, "
+            "msgwam_tpu_torch.plotting, msgwam_tpu_torch.utils.checkpoint, "
+            "msgwam_tpu_torch.utils.metrics, "
+            "msgwam_tpu_torch.utils.profiling, "
+            "msgwam_tpu_torch.utils.history_io; "
+            "assert 'msgwam_tpu' not in sys.modules; "
+            "assert 'matplotlib' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
