@@ -109,7 +109,27 @@ use), then, in order:
    "windowed"``, ``"integrator": "rk4"`` and ``"projection_backend":
    "pallas"`` at 1e5 rays for 20 steps: 80 K3 launches and 4 K1 calls
    (two a saved frame) and finite diagnostics.  Walls: the steps
-   (``--log-every`` chunks, behind a synchronize) and the whole command.
+   (``--log-every`` chunks, behind a synchronize) and the whole command;
+15. ray sharding (``msgwam_tpu_torch.parallel``), the card's compute mode
+   printed first: (a) NCCL, a world of 1 in this process: Path A sharded
+   at 1e6 rays (the bench population) against unsharded Path A, within
+   2e-5 after one step and 1e-4 after 5 (and whether bitwise equal), then
+   20 sharded steps with every count at 0 just before: exactly 3 x 20 K4
+   launches, all in its flux tail, and 3 x 20 all-reduces; the wall and
+   device operations per step of both (``torch.profiler``, 10 steps);
+   K4's flux tail against its twin on one later-stage launch (y', q' and
+   the rank's flux) and its device time; the K2, K3 (rk4) and K1 routes
+   sharded at 1e5 rays over 1 and 3 steps, to the same bars, with one
+   launch and one all-reduce an RHS evaluation (9 each, 12 for K3); the time of one all-reduce of the flux; (b) gloo, two
+   ranks on the one card as spawned processes, each with its own timeout:
+   1e6 rays, 5e5 a rank, through Path A for 5 steps, each rank's rays and
+   the wind within 1e-4 of the same slots of the unsharded run, the wall
+   per step over 20 steps and one all-reduce's time on gloo; configs[4]'s
+   8 x 125,000 ensemble on the ``mega`` mesh route, 4 members a rank in
+   one K7 launch each, members 0 and 7 within 1e-5 of their own K6 runs;
+   (c) ``cli.main(["run", "--shard", "--kernels", "windowed", "--preset",
+   "fast", ...])`` in-process as the world of 1: 3 x 20 K4 launches in the
+   flux tail, its step-10 frame within 1e-4 of the unsharded run's.
 
 Every kernel's entry in the summary line carries its bound, the larger of
 its bytes over the H100's memory rate and its operations over its f32 rate
@@ -138,14 +158,18 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch import _build, cli
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
 from msgwam_tpu_torch.ops.dispersion import cg_r
-from msgwam_tpu_torch.ops import (projection_cuda, ray_physics, rhs_cuda,
-                                  rhs_cuda_windowed, step_cuda, step_cuda_stream)
-from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
+from msgwam_tpu_torch.ops import (collective, projection_cuda, ray_physics,
+                                  rhs_cuda, rhs_cuda_windowed, step_cuda,
+                                  step_cuda_stream)
+from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
+                                       make_mesh, sharded_simulate,
+                                       stack_ensemble)
 from msgwam_tpu_torch.state import tree_map
 from msgwam_tpu_torch.utils import history_io
 
@@ -208,10 +232,12 @@ def reset_launches():
 
 
 def launches() -> dict:
-    """The launch count of every kernel: K1-K7."""
+    """The launch count of every kernel: K1-K7, and of K4's launches
+    those in its flux tail (``K4_flux``, ray sharding)."""
     return {"K1": projection_cuda.LAUNCHES, "K2": rhs_cuda.LAUNCHES,
             "K3": rhs_cuda_windowed.LAUNCHES["rhs_fused_windowed"],
             "K4": rhs_cuda_windowed.LAUNCHES["rk3_step_fused_windowed"],
+            "K4_flux": rhs_cuda_windowed.LAUNCHES["rk3_step_fused_windowed_flux"],
             "K5": step_cuda.LAUNCHES, **step_cuda_stream.LAUNCHES}
 
 
@@ -1761,6 +1787,337 @@ def phase_driver(smi: str) -> dict:
             "k1_k3": k13}
 
 
+# ---------------------------------------------------------------------------
+# ray sharding (phase 15)
+# ---------------------------------------------------------------------------
+
+N_SHARD = 1_000_000      # the bench population at full width, 5e5 a rank of 2
+SHARD_STEPS = 20         # the sharded Path A run whose launches are counted
+WORKER_TIMEOUT_S = 420   # each gloo rank's own limit: a hang fails [15]
+HERE = Path(__file__).resolve().parent
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sharded_run(mesh, state, statics, bg, cfg, n_steps: int):
+    """``sharded_simulate`` over ``n_steps`` behind a synchronize: this
+    rank's ``(final, wall seconds)``."""
+    run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=n_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _, _ = sharded_simulate(mesh, state, statics, bg, cfg, run)
+    torch.cuda.synchronize()
+    return final, time.perf_counter() - t0
+
+
+def shard_errs(want, got, lo: int = 0) -> dict:
+    """A rank's rays against the same slots of the unsharded run, and the
+    wind."""
+    hi = lo + got.rays.r.shape[0]
+    errs = {f: rel(getattr(want.rays, f)[lo:hi], getattr(got.rays, f))
+            for f in ("dens", "r", "m")}
+    errs["u"] = rel(want.mean.u, got.mean.u)
+    errs["v"] = rel(want.mean.v, got.mean.v)
+    return errs
+
+
+def same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in
+               zip((*a.rays, *a.mean), (*b.rays, *b.mean)))
+
+
+def all_reduce_ms(group, device, reps: int = 50) -> dict:
+    """One all-reduce of a ``(2, 99)`` flux: the host's wall per call over
+    ``reps`` calls ended by a synchronize, and under NCCL the device time
+    (CUDA events)."""
+    flux = torch.ones((2, 99), dtype=torch.float32, device=device)
+    call = lambda: dist.all_reduce(flux, group=group)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    res = {"wall_ms": (time.perf_counter() - t0) * 1e3 / reps}
+    if dist.get_backend(group) == "nccl":
+        res["device_ms"] = cuda_ms(call, iters=reps)
+    return res
+
+
+def k4_flux_tail(state, statics, bg, cfg) -> dict:
+    """K4 in its flux tail against its twin on one later-stage launch: y',
+    q' and the rank's flux; the device time of a launch in each tail."""
+    n = state.rays.r.shape[0]
+    device = state.rays.r.device
+    n_tab = bg.centers.shape[0]
+    plan = check_plan(state, bg, f"K4 flux tail at {n}")
+    inp = rhs_cuda.inputs(DT, state, statics, bg, cfg)
+    fields = list(inp.fields)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q = tuple(1e-3 * torch.randn(n, device=device, generator=gen) * f
+              for f in (fields[0], fields[1], fields[5]))
+    quv = tuple(1e-4 * torch.randn(n_tab, device=device, generator=gen)
+                for _ in range(2))
+    stage = ray_physics.RK3_STAGES[1]
+    outs = tuple(torch.empty_like(fields[0]) for _ in range(3))
+    q_k = tuple(x.clone() for x in q)
+    reset_launches()
+    _, flux, _ = rhs_cuda_windowed.launch(inp, *state.mean, fields, outs, q_k,
+                                          None, stage, flux_out=True)
+    expect_launches("K4 flux tail launch", K4=1, K4_flux=1)
+    ys, q_t, flux_t, _ = rhs_cuda_windowed.stage_reference(
+        inp, fields, q, *state.mean, quv, stage, plan)
+    errs = {f: rel(t, k) for f, t, k in
+            zip(("dens", "r", "m", "q_dens", "q_r", "q_m", "flux"),
+                (*ys, *q_t, flux_t), (*outs, *q_k, flux))}
+    abs_err = max(float((t.double() - k.double()).abs().max())
+                  for t, k in zip((*ys, flux_t), (*outs, flux)))
+    work = rhs_cuda.scratch(n, n_tab, device)
+    wbuf = tuple(torch.empty((4, n_tab), device=device).unbind(0))
+    ms = cuda_ms(lambda: rhs_cuda_windowed.launch(
+        inp, *state.mean, fields, outs, q_k, None, stage, work=work,
+        flux_out=True))
+    wind_ms = cuda_ms(lambda: rhs_cuda_windowed.launch(
+        inp, *state.mean, fields, outs, q_k, wbuf, stage, work=work))
+    for k, v in errs.items():
+        check(v <= TWIN_BAR, f"K4 flux tail {k} vs twin at {n}")
+    return {"errs": errs, "max_abs_err": abs_err, "ms": ms,
+            "wind_tail_ms": wind_ms}
+
+
+def gloo_worker(rank: int, init: str, out: str) -> None:
+    """One of [15]'s two gloo ranks on the one card: Path A at 1e6 rays
+    (its 5e5) for 5 steps, 20 timed steps, the all-reduce's time, and
+    configs[4]'s ensemble on the mega mesh route; results to
+    ``out/gloo<rank>.npz``."""
+    device = initialize_distributed(init_method=init, world_size=2, rank=rank,
+                                    backend="gloo", device="cuda:0")
+    torch.manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2)
+    cfg, bg, state, statics = bench_setup(N_SHARD, device, window_cells=-1)
+    sharded_run(mesh, state, statics, bg, cfg, 2)
+    reset_launches()
+    collective.ALL_REDUCES = 0
+    fin, _ = sharded_run(mesh, state, statics, bg, cfg, 5)
+    counts = launches()
+    reduces = collective.ALL_REDUCES
+    dist.barrier()
+    _, wall = sharded_run(mesh, state, statics, bg, cfg, SHARD_STEPS)
+    ar = all_reduce_ms(mesh.get_group("rays"), device)
+    log(f"[15] gloo rank {rank}: launches {counts}, all-reduces {reduces}; "
+        f"{wall * 1e3 / SHARD_STEPS:.4f} ms a step; all-reduce {ar}")
+
+    emesh = make_mesh(2, axis="ensemble")
+    cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
+    sp, stp = stack_ensemble(mem_p)
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=9)
+    reset_launches()
+    fe, _, mhe = ensemble_simulate(sp, stp, bg_p, cfg_p, run9, mesh=emesh,
+                                   backend="mega")
+    torch.cuda.synchronize()
+    ens_counts = launches()
+    ends = [0, N_MEMBERS - 1]
+    host = lambda x: x.detach().cpu().numpy()
+    np.savez(f"{out}/gloo{rank}.npz",
+             **{f: host(getattr(fin.rays, f)) for f in ("dens", "r", "m")},
+             u=host(fin.mean.u), v=host(fin.mean.v),
+             launches=json.dumps(counts), reduces=reduces,
+             wall_ms_per_step=wall * 1e3 / SHARD_STEPS,
+             all_reduce_wall_ms=ar["wall_ms"],
+             ens_launches=json.dumps(ens_counts),
+             **{f"ens_{f}": host(getattr(fe.rays, f)[ends])
+                for f in ("dens", "r", "m")},
+             ens_u=host(fe.mean.u[ends]), ens_hist_u=host(mhe.u[ends]))
+    dist.destroy_process_group()
+
+
+def phase_gloo(five, smi: str) -> dict:
+    """[15](b): two gloo ranks on the one card, as spawned processes."""
+    device = five.rays.r.device
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/store"
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.gloo_worker({rank}, {init!r}, {tmp!r})"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(2)]
+        t0 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for rank, (p, o) in enumerate(zip(procs, outs)):
+            for line in o.splitlines():
+                if line.startswith("[15]"):
+                    log(line)
+            check(p.returncode == 0, f"gloo rank {rank} failed:\n{o[-4000:]}")
+        res = [dict(np.load(f"{tmp}/gloo{rank}.npz")) for rank in range(2)]
+    half = N_SHARD // 2
+    errs = {}
+    for rank, r in enumerate(res):
+        counts = json.loads(str(r["launches"]))
+        want = {k: 0 for k in counts} | {"K4": 15, "K4_flux": 15}
+        check(counts == want and int(r["reduces"]) == 15,
+              f"gloo rank {rank}: launches {counts}, all-reduces {r['reduces']}")
+        e = {f: rel(getattr(five.rays, f)[rank * half:(rank + 1) * half],
+                    torch.from_numpy(r[f])) for f in ("dens", "r", "m")}
+        e.update(u=rel(five.mean.u, torch.from_numpy(r["u"])),
+                 v=rel(five.mean.v, torch.from_numpy(r["v"])))
+        errs[rank] = e
+        for k, v in e.items():
+            check(v < TRAJ_BAR, f"gloo rank {rank}, 5 steps, {k} vs unsharded")
+        ens = json.loads(str(r["ens_launches"]))
+        check(ens == {k: 0 for k in ens} | {"K7": 1},
+              f"gloo rank {rank}: ensemble launches {ens}")
+
+    cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
+    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=9)
+    member_errs = {}
+    for i, e in enumerate((0, N_MEMBERS - 1)):
+        f1, _, h1 = step_cuda_stream.simulate_streaming(*mem_p[e], bg_p, cfg_p,
+                                                        run9)
+        for rank, r in enumerate(res):
+            me = {f: rel(getattr(f1.rays, f), torch.from_numpy(r[f"ens_{f}"][i]))
+                  for f in ("dens", "r", "m")}
+            me["u"] = rel(f1.mean.u, torch.from_numpy(r["ens_u"][i]))
+            me["u_history"] = rel(h1[0].mean.u, torch.from_numpy(
+                r["ens_hist_u"][i]))
+            member_errs[f"member {e}, rank {rank}"] = me
+            for k, v in me.items():
+                check(v < 1e-5, f"gloo ensemble member {e} on rank {rank}, {k}")
+    walls = [float(r["wall_ms_per_step"]) for r in res]
+    reduce_ms = [float(r["all_reduce_wall_ms"]) for r in res]
+    log(f"[15](b) gloo, 2 ranks on one card, {N_SHARD} rays ({half} a rank), "
+        f"Path A 5 steps vs the unsharded run: {errs}; {SHARD_STEPS} steps "
+        f"{walls} ms a step; one all-reduce {reduce_ms} ms (host wall); "
+        f"configs[4] ensemble, 4 members a rank, one K7 launch each: "
+        f"{member_errs}; both ranks {wall:.1f} s in all on {smi}")
+    return {"errs": errs, "wall_ms_per_step": walls,
+            "all_reduce_wall_ms": reduce_ms, "member_errs": member_errs,
+            "wall_s": wall}
+
+
+def phase_sharding(device, smi: str) -> dict:
+    """Ray sharding: NCCL as a world of 1, gloo with two ranks on the one
+    card, and ``--shard`` through the driver."""
+    mode = compute_mode()
+    log(f"[15] compute mode: {mode}")
+    check(mode == "Default", f"[15] needs the Default compute mode, not {mode}")
+    initialize_distributed()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "[15](a): not an NCCL world of 1")
+    mesh = make_mesh(1)
+    group = mesh.get_group("rays")
+
+    # (a) Path A at 1e6 rays against the unsharded run
+    cfg, bg, state, statics = bench_setup(N_SHARD, device, window_cells=-1)
+    timed_simulate(state, statics, bg, cfg, 2)
+    sharded_run(mesh, state, statics, bg, cfg, 2)
+    one = timed_simulate(state, statics, bg, cfg, 1)[0]
+    s_one = sharded_run(mesh, state, statics, bg, cfg, 1)[0]
+    five = timed_simulate(state, statics, bg, cfg, 5)[0]
+    s_five = sharded_run(mesh, state, statics, bg, cfg, 5)[0]
+    e1, e5 = shard_errs(one, s_one), shard_errs(five, s_five)
+    bitwise = {"1 step": same(one, s_one), "5 steps": same(five, s_five)}
+    for k, v in e1.items():
+        check(v <= TWIN_BAR, f"sharded Path A, 1 step, {k}")
+    for k, v in e5.items():
+        check(v <= TRAJ_BAR, f"sharded Path A, 5 steps, {k}")
+    reset_launches()
+    collective.ALL_REDUCES = 0
+    _, wall_s = sharded_run(mesh, state, statics, bg, cfg, SHARD_STEPS)
+    counts = expect_launches("sharded Path A", K4=3 * SHARD_STEPS,
+                             K4_flux=3 * SHARD_STEPS)
+    reduces = collective.ALL_REDUCES
+    check(reduces == 3 * SHARD_STEPS, f"sharded Path A: {reduces} all-reduces")
+    _, _, wall_u = timed_simulate(state, statics, bg, cfg, SHARD_STEPS)
+    prof_s = profile_run(lambda: sharded_run(mesh, state, statics, bg, cfg, 10),
+                         10)
+    prof_u = profile_run(lambda: timed_simulate(state, statics, bg, cfg, 10), 10)
+    tail = k4_flux_tail(state, statics, bg, cfg)
+    nccl = all_reduce_ms(group, device)
+    log(f"[15](a) NCCL world of 1, Path A at {N_SHARD} rays: sharded vs "
+        f"unsharded after 1 step {fmt(e1)}, after 5 {fmt(e5)}; bitwise "
+        f"{bitwise}; {SHARD_STEPS} sharded steps: launches {counts}, "
+        f"all-reduces {reduces}; wall a step sharded "
+        f"{wall_s * 1e3 / SHARD_STEPS:.4f} ms, unsharded "
+        f"{wall_u * 1e3 / SHARD_STEPS:.4f} ms on {smi}")
+    log(f"[15]   profiler over 10 steps, sharded: {prof_s}; unsharded: {prof_u}")
+    log(f"[15]   K4 flux tail vs twin, one later-stage launch: "
+        f"{fmt(tail['errs'])}; {tail['ms']:.5f} ms a launch (wind tail "
+        f"{tail['wind_tail_ms']:.5f} ms); one NCCL all-reduce {nccl}")
+
+    routes = {}
+    for name, per_step, kw in (
+            ("K2", 3, dict()),
+            ("K3", 4, dict(window_cells=-1, integrator="rk4")),
+            ("K1", 3, dict(rhs_backend="xla", projection_backend="pallas",
+                           interp_backend="mxu"))):
+        c, b, s, st = bench_setup(N_MAIN, device, **kw)
+        u1 = timed_simulate(s, st, b, c, 1)[0]
+        s1 = sharded_run(mesh, s, st, b, c, 1)[0]
+        reset_launches()
+        collective.ALL_REDUCES = 0
+        s3 = sharded_run(mesh, s, st, b, c, 3)[0]
+        rc = expect_launches(f"sharded {name} route", **{name: 3 * per_step})
+        check(collective.ALL_REDUCES == 3 * per_step,
+              f"sharded {name} route: {collective.ALL_REDUCES} all-reduces")
+        u3 = timed_simulate(s, st, b, c, 3)[0]
+        r = {"errs_1": shard_errs(u1, s1), "errs_3": shard_errs(u3, s3),
+             "bitwise_3": same(u3, s3), "launches": rc[name]}
+        for k, v in r["errs_1"].items():
+            check(v <= TWIN_BAR, f"sharded {name} route, 1 step, {k}")
+        for k, v in r["errs_3"].items():
+            check(v <= TRAJ_BAR, f"sharded {name} route, 3 steps, {k}")
+        log(f"[15](a) {name} route sharded at {N_MAIN}: 1 step {fmt(r['errs_1'])}"
+            f", 3 steps {fmt(r['errs_3'])} (bitwise {r['bitwise_3']}); "
+            f"launches {rc[name]}, all-reduces {3 * per_step}")
+        routes[name] = r
+
+    gloo = phase_gloo(five, smi)
+
+    # (c) --shard through the driver, in this process's world of 1
+    args = ["--preset", "fast", "--kernels", "windowed", "--steps",
+            str(SHARD_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        collective.ALL_REDUCES = 0
+        sh = cli_run("--shard --kernels windowed", [*args, "--shard"],
+                     tmp / "s", K4=3 * SHARD_STEPS, K4_flux=3 * SHARD_STEPS)
+        cli_reduces = collective.ALL_REDUCES
+        check(cli_reduces == 3 * SHARD_STEPS, f"--shard: {cli_reduces} all-reduces")
+        check("rays split over 1 rank(s)" in sh["printed"]
+              and "falling back" not in sh["printed"], "--shard printed")
+        un = cli_run("--kernels windowed", args, tmp / "u", K4=3 * SHARD_STEPS)
+    cli_errs = {k: rel_np(un["diag"][k][0], sh["diag"][k][0])
+                for k in ("flux", "wave_action", "u")}
+    for k, v in cli_errs.items():
+        check(v < TRAJ_BAR, f"--shard step 10 {k} vs the unsharded run")
+    log(f"[15](c) --shard --kernels windowed, fast preset, {SHARD_STEPS} steps "
+        f"(world of 1): launches {sh['launches']}, all-reduces {cli_reduces}; "
+        f"step 10 vs the unsharded run {fmt(cli_errs)}; walls "
+        f"{sh['wall_s']:.3f} s and {un['wall_s']:.3f} s")
+    dist.destroy_process_group()
+    return {"compute_mode": mode, "errs_1": e1, "errs_5": e5, "bitwise": bitwise,
+            "launches": counts, "all_reduces": reduces,
+            "wall_ms_per_step": wall_s * 1e3 / SHARD_STEPS,
+            "unsharded_wall_ms_per_step": wall_u * 1e3 / SHARD_STEPS,
+            "profile": prof_s, "unsharded_profile": prof_u, "k4_flux_tail": tail,
+            "nccl_all_reduce": nccl, "routes": routes, "gloo": gloo,
+            "cli": {"launches": sh["launches"], "all_reduces": cli_reduces,
+                    "step10_errs": cli_errs}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1810,6 +2167,7 @@ def main() -> int:
     path_e = phase_path_e(device, smi)
     adjoint = phase_adjoint(device, smi)
     driver = phase_driver(smi)
+    shard = phase_sharding(device, smi)
     cli_launches = {k: v for r in driver["routes"].values()
                     for k, v in r["launches"].items() if v}
     cli_launches.update(K1=driver["k1_k3"]["launches"]["K1"],
@@ -1847,7 +2205,13 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
          "launches": path_a["launches"], "redesigned": 5,
          "cli": "--kernels windowed", "cli_launches": cli_launches["K4"],
-         "max_abs_err": path_a["max_abs_err"], **timing(path_a)},
+         "max_abs_err": max(path_a["max_abs_err"],
+                            shard["k4_flux_tail"]["max_abs_err"]),
+         **timing(path_a),
+         "sharded_launches": shard["launches"]["K4_flux"],
+         "sharded_ms": shard["k4_flux_tail"]["ms"],
+         "sharded_cli": "--shard --kernels windowed",
+         "sharded_cli_launches": shard["cli"]["launches"]["K4_flux"]},
         {"name": "K5 whole-run kernel (simulate_resident)", "route": "cuda",
          "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
@@ -1876,7 +2240,7 @@ def main() -> int:
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
         "k1_route": route, "path_d": path_d, "launch_sort": sort,
         "path_e": path_e, "adjoint": adjoint, "driver": driver,
-        "build_s": build_s,
+        "sharding": shard, "build_s": build_s,
     }
     log("[9] details " + json.dumps(summary))
     check(all(math.isfinite(k[f]) for k in kernels

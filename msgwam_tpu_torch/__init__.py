@@ -18,7 +18,11 @@ the stage-fused K4 (``rhs_backend="pallas"`` with the default
 through :func:`simulate_resident`, which routes the lifecycle, a
 ``wind_fn`` and the launch sort to K6 (``ops/step_cuda_stream.py``); and
 ensembles in one launch of K7 (:func:`simulate_streaming_ensemble`,
-``parallel.ensemble_simulate(backend="mega")``).
+``parallel.ensemble_simulate(backend="mega")``).  :mod:`.parallel` splits
+the rays (or the ensemble's members) over the ranks of a
+``torch.distributed`` mesh, one process per rank, with one all-reduce of
+the flux per RHS evaluation (``parallel.sharded_simulate``; the kernel
+routes K1, K2 and K4 shard too).
 
 Gradients follow ``requires_grad`` on the inputs wherever the JAX package
 has them: through :func:`simulate` (with ``remat`` True or ``"full"``:
@@ -80,5 +84,21 @@ from .ops import (  # noqa: F401
 from .ops.interp import interp  # noqa: F401
 from .ops.step_cuda import simulate_resident  # noqa: F401
 from .ops.step_cuda_stream import simulate_streaming_ensemble  # noqa: F401
+from .parallel import (  # noqa: F401
+    build_ensemble_fn,
+    build_sharded_simulate_fn,
+    ensemble_simulate,
+    full_history_observe,
+    full_history_observe_spec,
+    gather_state,
+    global_mesh,
+    initialize_distributed,
+    make_mesh,
+    ray_sharding_specs,
+    shard_state,
+    sharded_simulate,
+    sharded_step_fn,
+    stack_ensemble,
+)
 
 __version__ = "0.1.0"

@@ -84,7 +84,7 @@ SIGNATURES = {
         _P, _P, _P, _P,               # u_out v_out qu qv
         _P, _P, _P, _P, _I, _P,       # flux partials ranges sync parity tiers
         _I, _I, _I, _I,               # n_blocks n_red saturate_online faithful
-        _I, _I,                       # staged prognostic
+        _I, _I,                       # staged tail
         _F, _F, _I,                   # cc bc first
         _P,                           # stream
     ],

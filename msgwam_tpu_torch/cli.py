@@ -33,6 +33,14 @@ plus any :class:`~msgwam_tpu_torch.config.ModelConfig` field, e.g.::
       "dtype": "float64"
     }
 
+``--shard`` splits the rays over the ranks of a ``torch.distributed``
+world, one process per rank, with one all-reduce of the flux per RHS
+evaluation (:mod:`msgwam_tpu_torch.parallel.sharding`): run it under
+``torchrun`` (``torchrun --nproc_per_node 2 -m msgwam_tpu_torch run
+--shard --device cpu ...`` on the CPU, gloo; one rank per card on GPUs,
+NCCL), or alone as a world of 1.  Every rank gathers the history and the
+final state; rank 0 alone writes the files and the plot.
+
 There is no ``bench`` subcommand yet (ROADMAP queue 1, item 1).
 """
 
@@ -46,6 +54,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import models as _models
 from .config import GridConfig, ModelConfig, RunConfig
@@ -180,12 +189,33 @@ def run_experiment(
     ``final_state.npz`` (a checkpoint), ``diagnostics.npz`` and, with
     ``make_plot``, ``wave_action.png`` into ``out_dir``.  ``device`` is the
     card unless another device is given
-    (:func:`msgwam_tpu_torch.state.default_device`)."""
-    if shard:
-        raise NotImplementedError(
-            "--shard (ray sharding over devices) is not ported yet "
-            "(ROADMAP queue 1, item 8)")
-    device = default_device(device)
+    (:func:`msgwam_tpu_torch.state.default_device`).
+
+    ``shard`` splits the rays over the ranks of the ``torch.distributed``
+    world (set up here from ``torchrun``'s environment, or as a world of 1,
+    where no process group exists, and taken down at the end), each rank
+    on ``device`` or ``cuda:LOCAL_RANK``; ranks other than 0 write nothing
+    and return ``None`` for the checkpoint."""
+    if not shard:
+        return _run_experiment(spec, out_dir, make_plot, log_every,
+                               resume_from, stream_history, False,
+                               default_device(device))
+    from .parallel import initialize_distributed
+
+    created = not dist.is_initialized()
+    device = initialize_distributed(device=device)
+    try:
+        return _run_experiment(spec, out_dir, make_plot, log_every,
+                               resume_from, stream_history, True, device)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run_experiment(spec, out_dir, make_plot, log_every, resume_from,
+                    stream_history, shard, device) -> dict:
+    writes = not shard or dist.get_rank() == 0
+    say = print if writes else (lambda *a: None)
     dtype_name = "float64" if spec.get("dtype") == "float64" else "float32"
     dtype = getattr(torch, dtype_name)
     cfg = ModelConfig(dtype=dtype_name, **spec.get("model", {}))
@@ -245,15 +275,15 @@ def run_experiment(
         if cfg.projection_backend == "xla":
             need = required_span(float(rays.dr.max()), gc.dz)
             if need > cfg.max_span:
-                print(f"raising max_span {cfg.max_span} -> {need} "
-                      f"(widest ray volume spans {need} cells)")
+                say(f"raising max_span {cfg.max_span} -> {need} "
+                    f"(widest ray volume spans {need} cells)")
                 cfg = cfg.replace(max_span=need)
 
         step0 = 0
         if resume_from:
             state, statics, step0, _, _ = load_checkpoint(resume_from,
                                                           device=device)
-            print(f"resumed from {resume_from} at step {step0}")
+            say(f"resumed from {resume_from} at step {step0}")
         # resumed runs continue physical time where the checkpoint stopped:
         # transient backgrounds and the output time axis both use t0
         t0 = step0 * run.dt
@@ -270,9 +300,13 @@ def run_experiment(
             if (cfg.cull or cfg.relaunch) and not cfg.saturate_online:
                 # the in-kernel lifecycle runs only with online saturation
                 reasons.append("culling/relaunch with offline saturation")
+            if shard:
+                # ray sharding runs the scan path, as in the JAX package
+                # (the whole-run kernels shard over ensemble members)
+                reasons.append("--shard uses the scan path")
             if reasons:
-                print("--kernels mega: falling back to the adaptive-window "
-                      "kernel (" + "; ".join(reasons) + ")")
+                say("--kernels mega: falling back to the adaptive-window "
+                    "kernel (" + "; ".join(reasons) + ")")
             else:
                 use_mega = True
 
@@ -283,6 +317,8 @@ def run_experiment(
             def sim(s, st, r, toff):
                 return simulate_resident(s, st, bg, cfg, r, source=source,
                                          wind_fn=wind_fn, t0=toff)
+        elif shard:
+            sim = _sharded_sim(state, bg, cfg, source, wind_fn, say)
         else:
             def sim(s, st, r, toff):
                 return simulate(s, st, bg, cfg, r, source=source,
@@ -301,7 +337,7 @@ def run_experiment(
             uv_frames = []    # (frames, n_cell) wind profiles (streamed mode)
             with contextlib.ExitStack() as stack:
                 writer = None
-                if stream_history:
+                if stream_history and writes:
                     from .utils.history_io import StateHistoryWriter
 
                     os.makedirs(out_dir, exist_ok=True)
@@ -313,21 +349,23 @@ def run_experiment(
                     state, statics, h = sim(state, statics, chunk,
                                             t0 + start * run.dt)
                     _sync(device)
-                    logger.record(
-                        start + log_every,
-                        max_u=float(state.mean.u.abs().max()),
-                        active=float(statics.active.sum()),
-                    )
-                    if writer is not None:
+                    if writes:
+                        logger.record(
+                            start + log_every,
+                            max_u=float(state.mean.u.abs().max()),
+                            active=float(statics.active.sum()),
+                        )
+                    if stream_history:
                         # streamed mode: every decimated frame goes to disk
                         # through the async writer, one host copy a frame,
                         # and only the per-frame grid diagnostics stay
                         h_state, h_active, h_prop = h
                         for fi in range(h_active.shape[0]):
-                            writer.push_frame(
-                                tree_map(lambda x: x[fi], h_state.rays),
-                                h_active[fi], h_prop[fi],
-                                tree_map(lambda x: x[fi], h_state.mean))
+                            if writer is not None:
+                                writer.push_frame(
+                                    tree_map(lambda x: x[fi], h_state.rays),
+                                    h_active[fi], h_prop[fi],
+                                    tree_map(lambda x: x[fi], h_state.mean))
                         diag_pieces.append(wave_action_history(
                             h_state.rays, h_active, statics, bg, cfg))
                         uv_frames.append((h_state.mean.u.cpu().numpy(),
@@ -345,6 +383,8 @@ def run_experiment(
             final, statics_f = state, statics
         else:
             final, statics_f, hist = sim(state, statics, run, t0)
+        if not writes:
+            return {"checkpoint": None, "figure": None, "out_dir": out_dir}
 
         os.makedirs(out_dir, exist_ok=True)
         ckpt = os.path.join(out_dir, "final_state.npz")
@@ -384,6 +424,37 @@ def run_experiment(
     return {"checkpoint": ckpt, "figure": fig_path, "out_dir": out_dir}
 
 
+def _sharded_sim(state, bg, cfg, source, wind_fn, say):
+    """The ``--shard`` runner ``sim(state, statics, run, t0)``: the rays
+    split over the world's ranks, every output gathered to every rank."""
+    from .parallel import (full_history_observe, full_history_observe_spec,
+                           gather_state, make_mesh, sharded_simulate)
+
+    if wind_fn is not None:
+        raise ValueError(
+            "--shard does not support transient backgrounds (the sharded "
+            "scan path has no wind_fn threading); drop --shard or use a "
+            "static background")
+    mesh = make_mesh()
+    n_ranks = dist.get_world_size()
+    n_cap = int(state.rays.dens.shape[0])
+    if n_cap % n_ranks:
+        raise ValueError(
+            f"--shard: ray count {n_cap} must be divisible by the world "
+            f"size {n_ranks} (source n_ray controls it)")
+    say(f"--shard: rays split over {n_ranks} rank(s)")
+    spec = full_history_observe_spec()
+
+    def sim(s, st, r, toff):  # toff unused: transient winds are refused
+        f, sf, h = sharded_simulate(mesh, s, st, bg, cfg, r,
+                                    observe=full_history_observe,
+                                    observe_spec=spec, source=source)
+        return (gather_state(mesh, f), gather_state(mesh, sf),
+                gather_state(mesh, h, spec))
+
+    return sim
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="msgwam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -400,8 +471,10 @@ def main(argv=None):
                       help="stream every saved frame to disk through the "
                            "native async writer (requires --log-every)")
     runp.add_argument("--shard", action="store_true",
-                      help="shard the ray axis over devices (not ported "
-                           "yet: raises)")
+                      help="split the rays over the ranks of the "
+                           "torch.distributed world (torchrun, or a world "
+                           "of 1): one all-reduce of the flux per RHS "
+                           "evaluation; rank 0 writes the results")
     runp.add_argument("--window2", type=int,
                       help="second window tier (window_cells2) for the "
                            "windowed/mega kernels; 0 disables")
@@ -431,7 +504,8 @@ def main(argv=None):
         stream_history=args.stream_history, shard=args.shard,
         device=args.device,
     )
-    print(json.dumps(result))
+    if result["checkpoint"] is not None:
+        print(json.dumps(result))
 
 
 if __name__ == "__main__":

@@ -40,8 +40,12 @@
 //     back).  Blocks 0 .. n_red - 1 (one per wind cell where there are
 //     blocks enough) then wait for the rest and sum the flux by cell (see
 //     the reducers below):
-//     K2/K3 write it; K4 with a prognostic wind sums the four entries each
-//     of its cells needs and does that cell's wind stage update of
+//     K2/K3 write it, and so does K4 in its flux tail (kTailFlux: under ray
+//     sharding each rank's flux is summed over the ranks before the wind
+//     can move, so the wind's stage update is the caller's, after the
+//     all-reduce); K4 in its wind tail (kTailWind, a prognostic wind on one
+//     rank) sums the four entries each of its cells needs and does that
+//     cell's wind stage update of
 //     step_pallas.py:384-402 at once, in the order of operations of the
 //     torch glue it replaces (rhs_pallas_windowed.py:492-508): the flux
 //     padded by copy, its divergence over dzf, Coriolis, the pressure
@@ -50,7 +54,8 @@
 //     caller passes the parity): each launch zeroes the other one, which
 //     the previous launch used and the next will.  No float atomics; a
 //     launch is bitwise repeatable.
-// Without a prognostic wind K4 deposits nothing (the flux would be unused).
+// In its empty tail (kTailNone: no prognostic wind) K4 deposits nothing (the
+// flux would be unused).
 // A two-slot ring of tiles copied in with cp.async while the previous tile
 // computed was tried and measured slower at 1e5 and 1e6 rays (PERF.md):
 // four blocks a SM already keep enough loads in flight.
@@ -69,18 +74,20 @@
 namespace msgwam {
 
 constexpr int kFull = 0, kWindow = 1, kStaged = 2;
+// K4's tails: nothing, the flux and the wind update, the flux alone
+constexpr int kTailNone = 0, kTailWind = 1, kTailFlux = 2;
 constexpr int kStageBlocksPerSm = 4;
 constexpr int kMaxReducers = 256;
 
 struct StageArgs {
   const float *centers, *faces, *u, *v, *rhobar, *pg;
   float dt, bvf, kappa, f0, ff0, cc, bc;
-  int n_tab, c_pad, w1, w2, n, n_red, parity;
-  bool online, faithful, first, prognostic;
+  int n_tab, c_pad, w1, w2, n, n_red, parity, tail;
+  bool online, faithful, first;
   RayFields f;                       // the 11 ray fields and the mask
   float *out_dens, *out_r, *out_m;   // tendencies (K2/K3) or y' (K4)
   float *q_dens, *q_r, *q_m;         // K4: the RK3 registers, in place
-  float *u_out, *v_out, *qu, *qv;    // K4 with a prognostic wind
+  float *u_out, *v_out, *qu, *qv;    // K4 in its wind tail
   float* flux;                       // (2, n_tab - 1)
   double* partials;                  // (2 (n_tab - 1), nb), entry-major
   int* ranges;                       // (nb,): lo << 16 | hi of the block's cells
@@ -105,7 +112,7 @@ stage_kernel(const StageArgs a) {
   constexpr bool kWin = kMode != kFull;
   const int tid = threadIdx.x;
   const int nb = gridDim.x;
-  const bool dep = kMode != kStaged || a.prognostic;
+  const bool dep = kMode != kStaged || a.tail != kTailNone;
   const bool with_q = kMode == kStaged && !a.first;
   const int n_tiles = (a.n + kThreads - 1) / kThreads;
   // the other parity's counter, last used by the previous launch, for the
@@ -218,7 +225,7 @@ stage_kernel(const StageArgs a) {
   // K4: the entries at up = min(c, n_flux - 1) and dn = max(c - 1, 0) of
   // both vars (each entry is summed by the reducers of two cells, in the
   // same order, so to the same value), then the cell's wind update.
-  const bool wind = kMode == kStaged && a.prognostic;
+  const bool wind = kMode == kStaged && a.tail == kTailWind;
   const int n_cell = a.n_tab;
   const int grp = tid >> 6, gt = tid & 63;
   float wu = 0.0f, wv = 0.0f, wrho = 1.0f, wp0 = 0.0f, wp1 = 0.0f, wqu = 0.0f,
@@ -417,9 +424,12 @@ extern "C" int msgwam_rhs_fused(
 // full width) written.
 // staged = 1: K4, out_* are y' and q_* the RK3 registers (read after the
 // first stage, written always); cc, bc and first are the stage's
-// coefficients.  With prognostic, the wind after the stage goes to u_out,
-// v_out (which may be u, v) and its registers to qu, qv (read after the
-// first stage); ff0 is the wind's Coriolis parameter.
+// coefficients.  tail 0 (kTailNone): no deposit, flux unused.  tail 1
+// (kTailWind, a prognostic wind): the flux written and the wind after the
+// stage in u_out, v_out (which may be u, v), its registers in qu, qv (read
+// after the first stage); ff0 is the wind's Coriolis parameter.  tail 2
+// (kTailFlux, a prognostic wind under ray sharding): the flux written, as
+// K2/K3 write it, and u_out, v_out, qu, qv, pg unused.
 // Scratch as K2's.
 extern "C" int msgwam_rhs_windowed(
     const float* centers, const float* faces, const float* u, const float* v,
@@ -432,7 +442,7 @@ extern "C" int msgwam_rhs_windowed(
     float* q_m, float* u_out, float* v_out, float* qu, float* qv, float* flux,
     double* partials, int* ranges, int* sync, int parity, signed char* tiers,
     int n_blocks, int n_red, int saturate_online, int faithful, int staged,
-    int prognostic, float cc, float bc, int first, void* stream) {
+    int tail, float cc, float bc, int first, void* stream) {
   using namespace msgwam;
   StageArgs a;
   if (!fill_stage(a, centers, faces, u, v, rhobar, n_tab, c_pad, w1, w2, dt,
@@ -440,7 +450,8 @@ extern "C" int msgwam_rhs_windowed(
                   active, n, out_dens, out_r, out_m, flux, partials, ranges,
                   sync, parity, n_blocks, n_red, saturate_online, faithful) ||
       (staged && (q_dens == nullptr || q_r == nullptr || q_m == nullptr)) ||
-      (staged && prognostic &&
+      (staged && (tail < kTailNone || tail > kTailFlux)) ||
+      (staged && tail == kTailWind &&
        (pg == nullptr || u_out == nullptr || v_out == nullptr ||
         qu == nullptr || qv == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -454,7 +465,7 @@ extern "C" int msgwam_rhs_windowed(
   a.cc = cc;
   a.bc = bc;
   a.first = first != 0;
-  a.prognostic = prognostic != 0;
+  a.tail = tail;
   a.q_dens = q_dens;
   a.q_r = q_r;
   a.q_m = q_m;

@@ -15,10 +15,13 @@ import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from ..config import ModelConfig, RunConfig
+from ..ops import collective
 from ..ops.projection import required_span
+from ..ops.ray_physics import third
 from ..ops.saturation import saturate_direct
 from ..state import Background, RayStatics, State, torch_dtype, tree_axpy, tree_map
 from . import sources as _sources
@@ -26,12 +29,13 @@ from .rhs import rhs as rhs_default
 
 
 def validate_inputs(state: State, statics: RayStatics, bg: Background,
-                    cfg: ModelConfig) -> None:
+                    cfg: ModelConfig, axis_name=None) -> None:
     """Host-side checks run once per :func:`simulate`: the state and
     background dtype must match ``cfg.dtype``, and the ``xla`` scatter's
     ``max_span`` must cover the widest active ray (the scatter would
     otherwise drop part of its deposit).  The span check reads one value
-    from the device."""
+    from the device; under ray sharding (``axis_name``) the widest ray of
+    every rank, so that the ranks raise together or not at all."""
     n = state.rays.dens.shape[0]
     if (cfg.dtype == "float32" and cfg.projection_backend == "mxu"
             and cfg.rhs_backend != "pallas" and cfg.flux_accum == "native"
@@ -55,9 +59,15 @@ def validate_inputs(state: State, statics: RayStatics, bg: Background,
                 f"set cfg.replace(dtype={got!r})"
             )
 
-    if cfg.projection_backend == "xla" and bool(statics.active.any()):
+    if cfg.projection_backend != "xla":
+        return
+    dr = state.rays.dr.detach()
+    dr_max = torch.where(statics.active, dr, torch.full_like(dr, -math.inf)).max()
+    if axis_name is not None:
+        dist.all_reduce(dr_max, op=dist.ReduceOp.MAX, group=axis_name)
+    dr_max = float(dr_max)
+    if dr_max > -math.inf:
         dz = float(bg.faces[1] - bg.faces[0])
-        dr_max = float(state.rays.dr[statics.active].max())
         need = required_span(dr_max, dz)
         if need > cfg.max_span:
             raise ValueError(
@@ -85,7 +95,7 @@ def williamson_rk3(f: Callable, y, dt):
     q = tree_map(_scale(dt), f(y))
     # stage 1 adds q/3 by *division*, exactly like the reference
     y = tree_map(lambda qq, v: v if isinstance(qq, float) and qq == 0.0
-                 else v + qq / 3.0, q, y)
+                 else v + third(qq), q, y)
     q = tree_map(lambda t, qq: dt * t - 5.0 / 9.0 * qq, f(y), q)
     y = tree_axpy(15.0 / 16.0, q, y)
     q = tree_map(lambda t, qq: dt * t - 153.0 / 128.0 * qq, f(y), q)
@@ -120,11 +130,13 @@ def rk3_step(
     statics: RayStatics,
     bg: Background,
     cfg: ModelConfig,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     rhs: Callable = rhs_default,
 ) -> State:
     """One integrator step of the coupled system (``cfg.integrator``
     selects rk3/rk4/euler).  The full ``dt`` goes to every stage's RHS.
+    ``axis_name``: the ProcessGroup of the ranks that share the rays (ray
+    sharding: one all-reduce of the flux per RHS evaluation), or ``None``.
 
     With the windowed pallas backend (``window_cells != 0``), RK3, the
     default RHS and ``hprop=False``, the whole step runs stage-fused in
@@ -155,7 +167,7 @@ def step(
     statics: RayStatics,
     bg: Background,
     cfg: ModelConfig,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     rhs: Callable = rhs_default,
 ):
     """One model step: RK3, then (with ``saturate_online`` off) the
@@ -168,7 +180,10 @@ def step(
     ``cfg.relaunch`` is set (``ops/step_cuda_stream.py``), as its
     streaming kernel does."""
     prev = state
-    state = rk3_step(dt, state, statics, bg, cfg, axis_name, rhs)
+    if axis_name is not None:
+        collective.forward_only("step", axis_name, dt, state, statics, bg)
+    with collective.checked(axis_name):
+        state = rk3_step(dt, state, statics, bg, cfg, axis_name, rhs)
     aux = StepAux(dens_prop=state.rays.dens)
 
     if not cfg.saturate_online:
@@ -242,7 +257,7 @@ def simulate(
     observe: Optional[Callable] = None,
     source=None,
     relaunch_every: int = 1,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     rhs: Callable = rhs_default,
     wind_fn: Optional[Callable] = None,
     t0: float = 0.0,
@@ -287,15 +302,20 @@ def simulate(
     forward and the gradient are the same.  Only the last step's aux
     leaves a block.
 
-    ``axis_name`` (ROADMAP queue 1, item 8: ray sharding) raises
-    ``NotImplementedError``.
+    ``axis_name`` is the ProcessGroup of the ranks that share the rays
+    (ray sharding, :mod:`msgwam_tpu_torch.parallel.sharding`): the state
+    and statics are this rank's block of the rays and the replicated wind,
+    and every RHS evaluation sums its flux over the ranks.  The sort, the
+    cull and the relaunch stay local to each rank, as inside the JAX
+    package's ``shard_map``.  A sharded run is forward only: its inputs
+    are checked once, and its steps run under ``torch.no_grad()``.
     """
-    if axis_name is not None:
-        raise NotImplementedError("simulate(axis_name=...) is not ported yet "
-                                  "(ROADMAP queue 1, item 8: ray sharding)")
     if remat not in (False, True, "full"):
         raise ValueError(f"remat must be False, True or 'full', got {remat!r}")
     keyed_source = callable(source)
+    if axis_name is not None:
+        collective.forward_only("simulate", axis_name, state, statics, bg,
+                                None if keyed_source else source)
     if keyed_source and source_key is None:
         raise ValueError("a callable source requires source_key")
 
@@ -304,7 +324,7 @@ def simulate(
     if run.n_steps % run.save_every != 0:
         raise ValueError("n_steps must be divisible by save_every")
     if validate:
-        validate_inputs(state, statics, bg, cfg)
+        validate_inputs(state, statics, bg, cfg, axis_name)
 
     use_sort = sort_every > 0
     slot = (torch.arange(state.rays.r.shape[0], device=state.rays.r.device)
@@ -337,7 +357,8 @@ def simulate(
             mean = state.mean
             state = state._replace(mean=mean._replace(
                 u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
-        state, statics, aux = step(run.dt, state, statics, bg, cfg, None, rhs)
+        state, statics, aux = step(run.dt, state, statics, bg, cfg, axis_name,
+                                   rhs)
         if cfg.relaunch and source is not None:
             template = source(source_key) if keyed_source else source
             if use_sort:
@@ -359,13 +380,14 @@ def simulate(
     frames = []
     if include_t0:
         frames.append(observe(state, statics, StepAux(dens_prop=state.rays.dens)))
-    for b in range(run.n_steps // run.save_every):
-        if remat:
-            state, statics, slot, aux = _checkpoint(block, key, b, state,
-                                                    statics, slot)
-        else:
-            state, statics, slot, aux = block(b, state, statics, slot)
-        frames.append(observe(*unsorted(state, statics, aux, slot)))
+    with collective.checked(axis_name):
+        for b in range(run.n_steps // run.save_every):
+            if remat:
+                state, statics, slot, aux = _checkpoint(block, key, b, state,
+                                                        statics, slot)
+            else:
+                state, statics, slot, aux = block(b, state, statics, slot)
+            frames.append(observe(*unsorted(state, statics, aux, slot)))
     if use_sort:
         state, statics, _ = unsorted(state, statics, (), slot)
     if include_t0 and len(frames) > 1:

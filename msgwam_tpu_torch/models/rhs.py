@@ -13,16 +13,21 @@ for ``window_cells=0``, K3 (:mod:`msgwam_tpu_torch.ops.rhs_cuda_windowed`)
 with its per-tile height window otherwise.  Both routes are
 differentiable: the kernels' backward differentiates :func:`ray_tendencies`
 (:mod:`msgwam_tpu_torch.ops.adjoint`).
+
+Under ray sharding ``axis_name`` is the ProcessGroup of the ranks that
+share the rays: each rank deposits its own rays, and the interior flux is
+summed over the ranks (:func:`msgwam_tpu_torch.ops.collective.
+all_reduce_flux`) before the wind tendencies, as the JAX package's
+``psum`` is; a sharded call is forward only.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from ..config import ModelConfig
 from ..constants import RAD_EARTH
+from ..ops import collective
 from ..ops.dispersion import cg_r, group_velocities, wavenumber_tendencies
 from ..ops.interp import basis_interp, grid_interp
 from ..ops.projection import abs1, project_backend
@@ -60,20 +65,27 @@ def rhs(
     statics: RayStatics,
     bg: Background,
     cfg: ModelConfig,
-    axis_name: Optional[str] = None,
+    axis_name=None,
 ) -> State:
     """d(state)/dt.  Frozen fields come back as the Python float ``0.0``
-    (a structural zero), never as a tensor of zeros."""
+    (a structural zero), never as a tensor of zeros.  ``axis_name``: the
+    ProcessGroup to sum the flux over (ray sharding), or ``None``."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "ray sharding (axis_name) is not ported yet (ROADMAP queue 1, "
-            "item 8)")
+        collective.forward_only("rhs", axis_name, dt, state, statics, bg)
     if cfg.rhs_backend == "pallas":
-        return _rhs_via_fused_kernel(dt, state, statics, bg, cfg)
+        return _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name)
     if cfg.rhs_backend != "xla":
         raise ValueError(f"unknown rhs backend {cfg.rhs_backend!r}; "
                          "available: 'xla', 'pallas'")
-    return _rhs_xla(dt, state, statics, bg, cfg)
+    return _rhs_xla(dt, state, statics, bg, cfg, axis_name)
+
+
+def _summed(pm_interior, cfg: ModelConfig, axis_name):
+    """The rank's interior flux summed over ``axis_name``'s ranks, where
+    the wind reads it (a prognostic wind); as it is otherwise."""
+    if axis_name is None or not cfg.prognostic_mean:
+        return pm_interior
+    return collective.all_reduce_flux(pm_interior, axis_name)
 
 
 def _mean_tendencies(pm_interior, mean: MeanState, bg: Background,
@@ -98,8 +110,10 @@ def _rhs_xla(
     statics: RayStatics,
     bg: Background,
     cfg: ModelConfig,
+    axis_name=None,
 ) -> State:
     ray_st, pm_interior = ray_tendencies(dt, state, statics, bg, cfg)
+    pm_interior = _summed(pm_interior, cfg, axis_name)
     du_st, dv_st = _mean_tendencies(pm_interior, state.mean, bg, cfg)
     return State(ray_st, MeanState(du_st, dv_st))
 
@@ -184,7 +198,7 @@ def ray_tendencies(dt, state: State, statics: RayStatics, bg: Background,
     return ray_st, pm_interior
 
 
-def _rhs_via_fused_kernel(dt, state, statics, bg, cfg) -> State:
+def _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name=None) -> State:
     """RHS through a fused CUDA kernel: K2 at full width
     (``window_cells=0``), else K3 with its per-tile window (``-1``
     resolves to the 16-cell floor).  The kernel returns the three active
@@ -197,6 +211,7 @@ def _rhs_via_fused_kernel(dt, state, statics, bg, cfg) -> State:
 
     rays, mean = state
     tend, pm_interior = rhs_fused(dt, state, statics, bg, cfg)
+    pm_interior = _summed(pm_interior, cfg, axis_name)
     du_st, dv_st = _mean_tendencies(pm_interior, mean, bg, cfg)
     dtype = rays.dens.dtype
     # structural zeros as on the composable path (dens too, when online

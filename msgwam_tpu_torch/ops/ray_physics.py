@@ -151,12 +151,30 @@ def tendencies(fields, act, rt: RayTerms, du, dv, rho, dt, bvf, kappa, f0,
             "m": torch.where(act, dmm, zero)}
 
 
+_THREES = {}    # (dtype, device) -> the 0-d tensor 3
+
+
+def third(q):
+    """``q / 3`` by division on every device.  The divisor is a 0-d tensor
+    on ``q``'s device, made once for each dtype and device, not the Python
+    3.0: on the card torch divides by a Python scalar (or a 0-d CPU tensor)
+    as a product with its reciprocal, one rounding off the kernels'
+    division; on the CPU both divide."""
+    key = (q.dtype, q.device)
+    three = _THREES.get(key)
+    if three is None:
+        three = _THREES[key] = torch.full((), 3.0, dtype=q.dtype,
+                                          device=q.device)
+    return q / three
+
+
 def rk3_stage(tend, y, q, dt, cc, bc, first: bool):
     """One Williamson RK3 stage: ``(y', q')`` with ``q' = dt f - c q`` and
-    ``y' = y + b q'``; the first stage adds ``q'/3`` by division."""
+    ``y' = y + b q'``; the first stage adds ``q'/3`` by division
+    (:func:`third`)."""
     if first:
         q = dt * tend
-        return y + q / 3.0, q
+        return y + third(q), q
     q = dt * tend - cc * q
     return y + bc * q, q
 
@@ -323,19 +341,17 @@ def wind_stage(flux, u, v, qu, qv, pg, rhobar, dzf, ff0, dt, cc, bc,
     """The wind's RK3 stage update from a stage's ``(2, n_flux)`` flux, in
     the order of operations of K4's last reducer: the flux padded by copy
     at both ends, its divergence over ``dzf``, Coriolis ``ff0``, the
-    pressure gradient over ρ̄, then the q/y update.  Returns ``(u, v, qu,
+    pressure gradient over ρ̄, then the q/y update.  Both components at
+    once, ``(2, n_cell)``: the sharded K4 step runs this after each
+    stage's all-reduce, 14-16 torch operations.  Returns ``(u, v, qu,
     qv)``."""
-    n_flux = flux.shape[1]
-    c = torch.arange(n_flux + 1, device=flux.device)
-    up = torch.clamp(c, max=n_flux - 1)
-    dn = torch.clamp(c - 1, min=0)
-    gx = (flux[0, up] - flux[0, dn]) / dzf
-    gy = (flux[1, up] - flux[1, dn]) / dzf
-    du = ff0 * v - (pg[0] + gx) / rhobar
-    dv = -ff0 * u - (pg[1] + gy) / rhobar
-    u2, qu = rk3_stage(du, u, qu, dt, cc, bc, first)
-    v2, qv = rk3_stage(dv, v, qv, dt, cc, bc, first)
-    return u2, v2, qu, qv
+    padded = torch.cat([flux[:, :1], flux, flux[:, -1:]], dim=1)
+    grad = (padded[:, 1:] - padded[:, :-1]) / dzf
+    # ff0 * (-u) is -ff0 * u to the bit: a product's rounding is symmetric
+    tend = ff0 * torch.stack([v, -u]) - (pg + grad) / rhobar
+    q = None if first else torch.stack([qu, qv])
+    uv, q = rk3_stage(tend, torch.stack([u, v]), q, dt, cc, bc, first)
+    return uv[0], uv[1], q[0], q[1]
 
 
 def fused(params, scalars, tables, fields, act, online: bool, faithful: bool,

@@ -31,13 +31,24 @@ stage reads the caller's state and writes new arrays, which the second
 and third stages then update in place, and likewise the wind: the
 caller's state is never modified.
 
+Under ray sharding (``axis_name``, a ProcessGroup: each rank holds a
+block of the rays) the wind cannot move before the flux is summed over the
+ranks, so K4 takes its flux tail instead: it deposits and writes the
+rank's flux as K2/K3 do and leaves the wind alone; a stage is then one
+launch, one ``all_reduce`` of the ``(2, n_cell - 1)`` flux
+(:mod:`.collective`) and the wind's stage update in torch
+(:func:`.ray_physics.wind_stage`, the order of operations of the JAX
+package's XLA glue, ``rhs_pallas_windowed.py:492-508``).  Without
+``axis_name`` K4's arguments and launches are those of one rank.
+
 Like K2, both take float32 only: a float64 state raises ``TypeError``
-(the JAX kernels cast it to float32 and back).  Both are differentiable:
-their backwards run the composable path (:mod:`.adjoint`).
+(the JAX kernels cast it to float32 and back).  Both are differentiable
+when unsharded: their backwards run the composable path (:mod:`.adjoint`).
 For CPU tensors each entry point runs its plain twin
 (:func:`rhs_fused_windowed_reference`,
 :func:`rk3_step_fused_windowed_reference`); ``LAUNCHES`` counts kernel
-launches per entry point.
+launches per entry point, and ``"rk3_step_fused_windowed_flux"`` those of
+K4's launches that took the flux tail.
 """
 
 from __future__ import annotations
@@ -48,10 +59,14 @@ import torch
 
 from .. import _build
 from ..state import MeanState, State
-from . import adjoint, ray_physics, rhs_cuda
+from . import adjoint, collective, ray_physics, rhs_cuda
 from .rhs_cuda import window_for  # noqa: F401  (the windowed kernels' window)
 
-LAUNCHES = {"rhs_fused_windowed": 0, "rk3_step_fused_windowed": 0}
+LAUNCHES = {"rhs_fused_windowed": 0, "rk3_step_fused_windowed": 0,
+            "rk3_step_fused_windowed_flux": 0}
+
+# K4's tails (csrc/rhs_windowed.cu kTailNone, kTailWind, kTailFlux)
+TAIL_NONE, TAIL_WIND, TAIL_FLUX = 0, 1, 2
 
 
 def _ptr(x):
@@ -59,7 +74,7 @@ def _ptr(x):
 
 
 def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None,
-           stage=None, tiers: bool = False, work=None):
+           stage=None, tiers: bool = False, work=None, flux_out: bool = False):
     """One launch on checked inputs: returns ``(outs, flux, tiers)``.
 
     K3 (``stage is None``): ``outs`` are the three tendencies, new arrays
@@ -68,9 +83,10 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
     receive y' (they may be the dens, r and m of ``fields`` themselves),
     ``q`` holds the three RK3 registers, and with a prognostic wind
     ``wind = (u_out, v_out, qu, qv)`` receives the wind after the stage
-    (``u_out``, ``v_out`` may be ``u``, ``v``); the flux is then not
-    returned (``None``) without a prognostic wind.  ``fields`` default to
-    ``inp.fields``."""
+    (``u_out``, ``v_out`` may be ``u``, ``v``); without a prognostic wind
+    the flux is not returned (``None``).  ``flux_out`` takes K4's flux
+    tail: the flux written and returned, ``wind`` unused and the wind left
+    alone.  ``fields`` default to ``inp.fields``."""
     dt, bvf, kappa, f0, ff0 = inp.scalars
     c_pad, w1, w2 = inp.window
     bg = inp.bg
@@ -86,8 +102,9 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
     staged = stage is not None
     cc, bc, first = stage if staged else (0.0, 0.0, False)
     q = q if staged else (None,) * 3
-    prognostic = staged and inp.prognostic
-    wind = wind if prognostic else (None,) * 4
+    tail = (TAIL_FLUX if flux_out else TAIL_WIND if inp.prognostic
+            else TAIL_NONE) if staged else TAIL_NONE
+    wind = wind if tail == TAIL_WIND else (None,) * 4
     cnt = rhs_cuda.counters(device)
     err = _build.library().msgwam_rhs_windowed(
         bg.centers.data_ptr(), bg.faces.data_ptr(), u.data_ptr(), v.data_ptr(),
@@ -99,13 +116,15 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
         work.partials.data_ptr(), work.ranges.data_ptr(),
         cnt.buf.data_ptr(), cnt.parity, _ptr(tier_t), work.plan.blocks,
         work.plan.reducers, int(inp.online), int(inp.faithful), int(staged),
-        int(prognostic), cc, bc, int(bool(first)),
+        tail, cc, bc, int(bool(first)),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "msgwam_rhs_windowed")
     cnt.launched()
     LAUNCHES["rk3_step_fused_windowed" if staged else "rhs_fused_windowed"] += 1
-    return outs, (None if staged and not prognostic else work.flux), tier_t
+    if tail == TAIL_FLUX:
+        LAUNCHES["rk3_step_fused_windowed_flux"] += 1
+    return outs, (None if staged and tail == TAIL_NONE else work.flux), tier_t
 
 
 def rhs_fused_windowed(dt, state, statics, bg, cfg):
@@ -137,12 +156,15 @@ def rhs_fused_windowed_reference(dt, state, statics, bg, cfg):
     return tend, flux
 
 
-def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None):
+def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None,
+                    group=None):
     """The twin of one K4 launch, in the inputs' dtype: the shear tables
     from ``u``, ``v``, the per-ray stage (K3's twin and the RK3 update),
     the flux summed by ``plan`` (default: the H100's), and with a
     prognostic wind the wind's stage update (:func:`ray_physics.
-    wind_stage`).  Returns ``(ys, q, flux, (u, v, qu, qv))``."""
+    wind_stage`), from the flux summed over ``group``'s ranks when a
+    ``group`` is given (the flux tail and its all-reduce).  Returns ``(ys,
+    q, flux, (u, v, qu, qv))``, the flux as the wind took it."""
     dt, bvf, kappa, f0, ff0 = inp.scalars
     cc, bc, first = stage
     bg = inp.bg
@@ -162,6 +184,8 @@ def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None
                                (fields[0], fields[1], fields[5]), q)]
     qu, qv = quv if quv is not None else (None, None)
     if inp.prognostic:
+        if group is not None:
+            flux = collective.all_reduce_flux(flux, group)
         dzf = bg.faces[1] - bg.faces[0]
         u, v, qu, qv = ray_physics.wind_stage(
             flux, u, v, qu, qv, bg.pressure_gradient, bg.rhobar, dzf, ff0, dt,
@@ -170,24 +194,27 @@ def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None
             (u, v, qu, qv))
 
 
-def _rk3_step_reference(dt, state, statics, bg, cfg, plan=None):
+def _rk3_step_reference(dt, state, statics, bg, cfg, plan=None, group=None):
     inp = rhs_cuda.inputs(dt, state, statics, bg, cfg)
     fields = list(inp.fields)
     u, v = state.mean
     q = quv = None
     for stage in ray_physics.RK3_STAGES:
         ys, q, _, (u, v, qu, qv) = stage_reference(inp, fields, q, u, v, quv,
-                                                   stage, plan)
+                                                   stage, plan, group)
         quv = (qu, qv)
         fields[0], fields[1], fields[5] = ys
     rays = state.rays._replace(dens=fields[0], r=fields[1], m=fields[5])
     return State(rays, MeanState(u, v))
 
 
-def _rk3_step_kernel(dt, state, statics, bg, cfg):
+def _rk3_step_kernel(dt, state, statics, bg, cfg, group=None):
     """Three K4 launches: the first stage reads the caller's state and
-    writes new arrays, the next two update those in place."""
+    writes new arrays, the next two update those in place.  With a
+    ``group`` and a prognostic wind each launch takes the flux tail and is
+    followed by the flux's all-reduce and the wind's stage update."""
     inp = rhs_cuda.inputs(dt, state, statics, bg, cfg)
+    sharded = group is not None and inp.prognostic
     fields = list(inp.fields)
     n = fields[0].shape[0]
     device = fields[0].device
@@ -196,14 +223,22 @@ def _rk3_step_kernel(dt, state, statics, bg, cfg):
     ys = tuple(torch.empty_like(fields[0]) for _ in range(3))
     q = tuple(torch.empty_like(fields[0]) for _ in range(3))
     u, v = state.mean
-    wind = None
-    if inp.prognostic:
+    wind = qu = qv = None
+    if inp.prognostic and not sharded:
         wind = tuple(torch.empty((4, n_tab), dtype=torch.float32,
                                  device=device).unbind(0))
+    if sharded:
+        dzf = bg.faces[1] - bg.faces[0]
     for stage in ray_physics.RK3_STAGES:
-        launch(inp, u, v, fields, ys, q, wind, stage, work=work)
+        _, flux, _ = launch(inp, u, v, fields, ys, q, wind, stage, work=work,
+                            flux_out=sharded)
         fields[0], fields[1], fields[5] = ys
-        if wind is not None:
+        if sharded:
+            flux = collective.all_reduce_flux(flux, group)
+            u, v, qu, qv = ray_physics.wind_stage(
+                flux, u, v, qu, qv, bg.pressure_gradient, bg.rhobar, dzf,
+                inp.scalars[4], inp.scalars[0], *stage)
+        elif wind is not None:
             u, v = wind[0], wind[1]
     rays = state.rays._replace(dens=ys[0], r=ys[1], m=ys[2])
     return State(rays, MeanState(u, v))
@@ -215,14 +250,19 @@ def rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name=None):
     the new state returned and the caller's left as it was.
     ``hprop=False``, float32.  Differentiable: the backward differentiates
     the generic RK3 step on the composable RHS (:func:`_rk3_step_plain`),
-    as the JAX package's ``_rk3_step_fused_bwd`` does."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ray sharding (axis_name) is not ported yet (ROADMAP queue 1, "
-            "item 8)")
+    as the JAX package's ``_rk3_step_fused_bwd`` does.
+
+    ``axis_name``, the ProcessGroup of the ranks that share the rays:
+    each stage's flux is summed over them between K4 (in its flux tail)
+    and the wind's update, as the JAX package's ``psum`` under
+    ``shard_map`` is; forward only."""
     rhs_cuda.check_inputs(state, statics, bg, "rk3_step_fused_windowed")
     kernel = (_rk3_step_kernel if state.rays.r.device.type == "cuda"
               else _rk3_step_reference)
+    if axis_name is not None:
+        collective.forward_only("rk3_step_fused_windowed", axis_name, dt,
+                                state, statics, bg)
+        return kernel(dt, state, statics, bg, cfg, group=axis_name)
     return adjoint.kernel_call(functools.partial(kernel, cfg=cfg),
                                functools.partial(_rk3_step_plain, cfg=cfg),
                                dt, state, statics, bg)

@@ -28,8 +28,6 @@ Not ported, and why:
   pipeline.  The port's tile is the kernels' 256-ray tile, nothing is
   padded, and ``tile_rows`` is accepted and changes nothing.
 * ``_ablate``, a profiling switch of the TPU kernel.
-* The ``shard_map`` mesh route of the ensemble (``parallel/ensemble.py``
-  raises for ``mesh``).
 * A backward for K6: :func:`simulate_streaming` is forward only, as the
   JAX package's streaming path is, and raises when an input needs a
   gradient (``simulate`` differentiates the lifecycle).  K7's

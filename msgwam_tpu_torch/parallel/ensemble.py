@@ -8,9 +8,15 @@ simulate_streaming_ensemble`); ``backend="scan"`` runs the members one
 after another through :func:`msgwam_tpu_torch.simulate`.  The JAX package
 vmaps its scan over the members or maps it (``sequential``); torch has no
 vmap of this Python loop, so the port always runs the members in turn and
-``sequential`` changes nothing.  A ``mesh`` (the JAX package's
-``shard_map`` over devices) raises: one H100 has no second device, and
-sharding is ROADMAP queue 1, item 8.
+``sequential`` changes nothing.
+
+With a ``mesh`` (a ``DeviceMesh`` with an ``"ensemble"`` dimension,
+:func:`msgwam_tpu_torch.parallel.make_mesh`) the members are split over
+its ranks, each rank taking a contiguous block (JAX's ``P("ensemble")``),
+and the member count must divide the ranks.  Each rank runs its own
+members, in turn (``scan``) or as one launch a window (``mega``: K7, K6
+with one member a rank); members never communicate, so the only
+collective is the gather of every output, member-leading, to every rank.
 """
 
 from __future__ import annotations
@@ -35,11 +41,27 @@ def stack_ensemble(members):
     return tree_map(stack, *states), tree_map(stack, *statics)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "ensemble sharding over a device mesh is not ported (ROADMAP "
-            "queue 1, item 8); one H100 runs every member")
+def _on_mesh(mesh, axis: str, run_local: Callable, states, statics, sources,
+             wind_fn, bg):
+    """``run_local(states, statics, sources, wind_fn, bg)`` on this rank's
+    block of members, its outputs gathered member-leading to every rank."""
+    from .distributed import P, local_device, mesh_position
+    from .sharding import gather_state
+
+    n_members = states.rays.r.shape[0]
+    i, k = mesh_position(mesh, axis)
+    if n_members % k:
+        raise ValueError(f"{n_members} ensemble members do not divide over "
+                         f"the {k} ranks of mesh dimension {axis!r}")
+    block = slice(i * n_members // k, (i + 1) * n_members // k)
+    device = local_device()
+    local = lambda tree: tree_map(lambda x: x[block].to(device), tree)
+    if isinstance(wind_fn, (list, tuple)):
+        wind_fn = wind_fn[block]
+    out = run_local(local(states), local(statics),
+                    None if sources is None else local(sources), wind_fn,
+                    tree_map(lambda x: x.to(device), bg))
+    return gather_state(mesh, out, tree_map(lambda _: P(axis), out))
 
 
 def ensemble_simulate(
@@ -58,9 +80,10 @@ def ensemble_simulate(
     t0: float = 0.0,
 ):
     """Run a batch of simulations (leading ensemble axis on every leaf of
-    ``states``/``statics``).
+    ``states``/``statics``), split over the ``axis`` ranks of ``mesh`` if
+    given.
 
-    ``backend="mega"`` routes the batch through
+    ``backend="mega"`` routes the batch (each rank's members) through
     :func:`msgwam_tpu_torch.ops.step_cuda_stream.simulate_streaming_ensemble`
     (K7): online saturation, float32, the lifecycle per member with stacked
     ``sources`` templates, a shared or per-member ``wind_fn``.  It rejects
@@ -70,11 +93,9 @@ def ensemble_simulate(
 
     ``backend="scan"`` runs each member through ``simulate`` with
     ``observe`` (default: the mean wind) and stacks the results; members
-    run one after another whatever ``sequential`` says.  ``mesh`` raises
-    ``NotImplementedError``.
-    """
-    del axis
-    _no_mesh(mesh)
+    run one after another whatever ``sequential`` says.
+
+    With ``mesh`` every rank returns the whole ensemble's outputs."""
     if backend == "mega":
         from ..ops.step_cuda_stream import simulate_streaming_ensemble
 
@@ -87,13 +108,21 @@ def ensemble_simulate(
             raise ValueError(
                 "backend='mega' batches all local members into one kernel "
                 "launch; sequential=True is a scan-backend option")
-        fin, st, mh = simulate_streaming_ensemble(
-            states, statics, bg, cfg, run, sources=sources, wind_fn=wind_fn,
-            t0=t0)
-        return fin, st, tree_map(lambda x: x.transpose(0, 1), mh)
+
+        def run_mega(states, statics, sources, wind_fn, bg):
+            fin, st, mh = simulate_streaming_ensemble(
+                states, statics, bg, cfg, run, sources=sources,
+                wind_fn=wind_fn, t0=t0)
+            return fin, st, tree_map(lambda x: x.transpose(0, 1), mh)
+
+        if mesh is None:
+            return run_mega(states, statics, sources, wind_fn, bg)
+        return _on_mesh(mesh, axis, run_mega, states, statics, sources,
+                        wind_fn, bg)
     if backend != "scan":
         raise ValueError(f"unknown ensemble backend {backend!r}")
-    fn = build_ensemble_fn(cfg, run, observe=observe, sequential=sequential,
+    fn = build_ensemble_fn(cfg, run, mesh=mesh, observe=observe, axis=axis,
+                           sequential=sequential,
                            with_source=sources is not None, wind_fn=wind_fn,
                            t0=t0)
     if sources is None:
@@ -118,23 +147,29 @@ def build_ensemble_fn(
 ) -> Callable:
     """The ensemble runner ``f(states, statics[, sources], bg) -> (final,
     statics, history)``: each member through ``simulate`` in turn, the
-    results stacked member-leading.  ``with_source=True`` adds a stacked
+    results stacked member-leading; with ``mesh``, each rank's members, the
+    results gathered to every rank.  ``with_source=True`` adds a stacked
     per-member relaunch template argument.  Nothing is compiled, so nothing
-    is cached; ``sequential`` changes nothing and ``mesh`` raises
-    ``NotImplementedError``."""
-    del axis, sequential
-    _no_mesh(mesh)
+    is cached; ``sequential`` changes nothing."""
+    del sequential
     obs = observe or _default_observe
     pick = lambda tree, e: tree_map(lambda x: x[e], tree)
 
-    def run_members(states, statics, *rest):
-        *src, bg = rest
+    def run_members(states, statics, sources, wind_fn, bg):
         outs = []
         for e in range(states.rays.r.shape[0]):
-            source = pick(src[0], e) if with_source else None
+            source = pick(sources, e) if with_source else None
             outs.append(simulate(pick(states, e), pick(statics, e), bg, cfg,
                                  run, observe=obs, source=source,
                                  wind_fn=wind_fn, t0=t0))
         return tree_map(lambda *xs: torch.stack(xs), *outs)
 
-    return run_members
+    def runner(states, statics, *rest):
+        *src, bg = rest
+        sources = src[0] if with_source else None
+        if mesh is None:
+            return run_members(states, statics, sources, wind_fn, bg)
+        return _on_mesh(mesh, axis, run_members, states, statics, sources,
+                        wind_fn, bg)
+
+    return runner

@@ -239,18 +239,94 @@ def test_float64_with_a_kernel_route_raises(tmp_path, kernels):
 
 
 def test_shard_and_no_card_raise(tmp_path):
-    """``--shard`` is not ported yet; without ``--device`` the run goes to
-    the card, and where there is none it raises instead of running on the
-    CPU."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tcli.main(["run", "--preset", "reference", "--steps", "2",
-                   "--device", "cpu", "--shard", "--out", str(tmp_path)])
+    """``--shard`` refuses a transient background, as msgwam_tpu does;
+    without ``--device`` the run (sharded or not) goes to the card, and
+    where there is none it raises instead of running on the CPU."""
+    path = tmp_path / "tidal.json"
+    path.write_text(json.dumps(_tidal_spec()))
+    with pytest.raises(ValueError, match="--shard does not support transient"):
+        tcli.main(["run", "--config", str(path), "--device", "cpu", "--shard",
+                   "--no-plot", "--out", str(tmp_path / "t")])
+    assert not torch.distributed.is_initialized()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcli.main(["run", "--preset", "reference", "--steps", "2",
-                   "--no-plot", "--out", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+    for shard in ([], ["--shard"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["run", "--preset", "reference", "--steps", "2",
+                       "--no-plot", "--out", str(tmp_path / "c"), *shard])
+    assert not os.path.exists(tmp_path / "c")
+
+
+def _shard_spec():
+    """The reference preset on the mxu route, 20 steps of 64 rays: a ray
+    count that divides over msgwam_tpu's 8 devices and over 1 or 2 ranks.
+    (msgwam_tpu's sharded run fails on the xla route: its diagnostics'
+    scatter cannot resolve the sharded history's layout.)"""
+    spec = _loaded(jcli.PRESETS["reference"], "mxu")
+    spec["run"].update(n_steps=20, save_every=5)
+    spec["source"]["n_ray"] = 64
+    return spec
+
+
+@pytest.fixture(scope="module")
+def shard_one(tmp_path_factory):
+    """``--shard`` as a world of 1 in this process, in float64: its
+    diagnostics and final state."""
+    out = tmp_path_factory.mktemp("shard1")
+    got = _port(_shard_spec(), out, shard=True)
+    assert not torch.distributed.is_initialized()
+    return got, dict(np.load(out / "final_state.npz"))
+
+
+def test_shard_world_of_one_matches_jax_shard(tmp_path, shard_one):
+    """``--shard --kernels mxu`` in float64 as a world of 1 against
+    msgwam_tpu's ``run_experiment(shard=True)`` over its 8 devices: the
+    diagnostics and the final state at 1e-12."""
+    spec = _shard_spec()
+    want = _jax(spec, tmp_path / "j", shard=True)
+    got, state = shard_one
+    _assert_close(want, got, 1e-12)
+    jstate = np.load(tmp_path / "j" / "final_state.npz")
+    for name in jstate.files:
+        if name.startswith(("rays.", "mean.")):
+            assert _rel(jstate[name], state[name]) <= 1e-12, name
+
+
+def test_shard_over_two_ranks_under_torchrun(tmp_path, shard_one):
+    """``torchrun --nproc_per_node 2 -m msgwam_tpu_torch run --shard
+    --device cpu``: two gloo ranks, rank 0 alone writes and prints; the
+    diagnostics and the final state within 1e-12 of the world of 1."""
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(_shard_spec()))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "msgwam_tpu_torch", "run", "--shard",
+         "--device", "cpu", "--config", str(path), "--no-plot", "--out",
+         str(tmp_path / "t")],
+        cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("rays split over 2 rank(s)") == 1
+    assert out.stdout.count('"checkpoint"') == 1
+    want, state = shard_one
+    _assert_close(want, dict(np.load(tmp_path / "t" / "diagnostics.npz")),
+                  1e-12)
+    got = np.load(tmp_path / "t" / "final_state.npz")
+    for name in got.files:
+        if name.startswith(("rays.", "mean.")):
+            assert _rel(state[name], got[name]) <= 1e-12, name
+
+
+def test_shard_demotes_mega(tmp_path, capsys):
+    """``--kernels mega --shard`` prints the fallback, as msgwam_tpu does,
+    and runs the sharded scan path through K4 (its twin here): a world of
+    1 equal to the unsharded ``--kernels windowed`` run."""
+    got = _port(_spec(kernels="mega"), tmp_path / "m", shard=True)
+    printed = capsys.readouterr().out
+    assert "falling back" in printed and "--shard uses the scan path" in printed
+    assert "rays split over 1 rank(s)" in printed
+    want = _port(_spec(kernels="windowed"), tmp_path / "w")
+    _assert_close(want, got, 1e-12)
 
 
 def test_python_m_run(tmp_path):

@@ -22,7 +22,8 @@ from msgwam_tpu.ops.step_pallas_stream import simulate_streaming_ensemble as jax
 from msgwam_tpu.parallel import stack_ensemble as jax_stack
 from msgwam_tpu_torch.ops.step_cuda_stream import (simulate_streaming,
                                                    simulate_streaming_ensemble)
-from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
+from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
+                                       make_mesh, stack_ensemble)
 
 torch.set_num_threads(1)
 
@@ -183,8 +184,16 @@ def test_ensemble_rejections():
                           sequential=True)
     with pytest.raises(ValueError, match="backend"):
         ensemble_simulate(states, statics, bg, cfg, RUN, backend="vmap")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        ensemble_simulate(states, statics, bg, cfg, RUN, mesh=object())
+    # the mesh route (a world of 1 here) keeps the mega backend's refusals
+    assert not torch.distributed.is_initialized()
+    initialize_distributed(device="cpu")
+    try:
+        with pytest.raises(ValueError, match="observe"):
+            ensemble_simulate(states, statics, bg, cfg, RUN, backend="mega",
+                              mesh=make_mesh(axis="ensemble"),
+                              observe=lambda s, st, aux: s.mean)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.fixture

@@ -152,7 +152,8 @@ def test_unported_options_raise_and_inputs_are_validated():
     cfg, bg, state, statics = _reference_setup()
     s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
     tcfg, run = _tcfg(cfg), mtt.RunConfig(dt=120.0, n_steps=2, save_every=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ray sharding takes the mesh dimension's ProcessGroup, not its name
+    with pytest.raises(TypeError, match="ProcessGroup"):
         mtt.simulate(s, st, b, tcfg, run, axis_name="rays")
     with pytest.raises(ValueError, match="remat"):
         mtt.simulate(s, st, b, tcfg, run, remat="blocks")

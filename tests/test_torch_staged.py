@@ -156,7 +156,8 @@ def test_default_window_slice_matches_msgwam_tpu():
 
 def test_windowed_route_refuses_float64_and_axis_name():
     """K4 follows K2: a float64 state raises instead of a silent cast;
-    ray sharding is not ported."""
+    an axis name that is not a ProcessGroup (JAX's mesh-axis string) raises
+    too."""
     cfg, bg, state, statics = _setup(100, 256)
     run = mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)
     s64, st64, b64 = mtt.from_numpy((state, statics, bg), dtype="float64", device="cpu")
@@ -164,7 +165,7 @@ def test_windowed_route_refuses_float64_and_axis_name():
     with pytest.raises(TypeError, match="float32"):
         mtt.simulate(s64, st64, b64, tcfg, run)
     s, st, b = mtt.from_numpy((state, statics, bg), device="cpu")
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    with pytest.raises(TypeError, match="axis_name must be the ProcessGroup"):
         integrate.rk3_step(120.0, s, st, b, _tcfg(cfg.replace(
             rhs_backend="pallas")), axis_name="rays")
 

@@ -168,7 +168,10 @@ def test_port_imports_without_jax():
             "msgwam_tpu_torch.plotting, msgwam_tpu_torch.utils.checkpoint, "
             "msgwam_tpu_torch.utils.metrics, "
             "msgwam_tpu_torch.utils.profiling, "
-            "msgwam_tpu_torch.utils.history_io; "
+            "msgwam_tpu_torch.utils.history_io, "
+            "msgwam_tpu_torch.parallel.sharding, "
+            "msgwam_tpu_torch.parallel.distributed, "
+            "msgwam_tpu_torch.ops.collective; "
             "assert 'msgwam_tpu' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
