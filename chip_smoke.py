@@ -120,13 +120,25 @@ use), then, in order:
    K4's flux tail against its twin on one later-stage launch (y', q' and
    the rank's flux) and its device time; the K2, K3 (rk4) and K1 routes
    sharded at 1e5 rays over 1 and 3 steps, to the same bars, with one
-   launch and one all-reduce an RHS evaluation (9 each, 12 for K3); the time of one all-reduce of the flux; (b) gloo, two
+   launch and one all-reduce an RHS evaluation (9 each, 12 for K3); the time of one all-reduce of the flux;
+   the gradient of [13]'s loss in its scale, its direction and the initial
+   wind through sharded Path A at 1e6 rays over 10 steps with
+   ``remat=True`` (``shard_state``, then ``simulate`` with the ray group)
+   against the same run unsharded: bitwise or within 1e-6, 6 x 10 K4
+   launches in the flux tail (the forward's and the checkpoint's replay),
+   all-reduces 3 a step forward and 6 a step backward (the replay and the
+   plain rerun; a world of 1 skips the wind's cotangent sum), the
+   backward's wall and the peak of device memory of both; (b) gloo, two
    ranks on the one card as spawned processes, each with its own timeout:
    1e6 rays, 5e5 a rank, through Path A for 5 steps, each rank's rays and
    the wind within 1e-4 of the same slots of the unsharded run, the wall
    per step over 20 steps and one all-reduce's time on gloo; configs[4]'s
    8 x 125,000 ensemble on the ``mega`` mesh route, 4 members a rank in
    one K7 launch each, members 0 and 7 within 1e-5 of their own K6 runs;
+   the gradients of Path A over 5 steps (``remat=True``) within 1e-4 of
+   the unsharded run's, with the wind's cotangent summed over the ranks
+   once a stage but the last (14 all-reduces), and of the ensemble over 9
+   steps on the mesh within 5e-4 of the meshless K7 run's;
    (c) ``cli.main(["run", "--shard", "--kernels", "windowed", "--preset",
    "fast", ...])`` in-process as the world of 1: 3 x 20 K4 launches in the
    flux tail, its step-10 frame within 1e-4 of the unsharded run's;
@@ -141,7 +153,10 @@ use), then, in order:
    1e-7 change of the densities;
    ``config_ladder``'s configs 1 and 2 finite, config 5's one K7 launch,
    members 0 and 7 within 1e-4 of their own K6 runs and every member's
-   wind response within 1e-4 of K6's twin;
+   wind response within 1e-4 of K6's twin; config 5 step by step over its
+   60 steps (K7 a launch a step, and the scan backend in float32) against
+   the scan backend in float64, with the first step and field, if any,
+   where K7's error passes ten times float32's own (logged);
    ``critical_level_relaunch`` at its defaults, the streamed history read
    back equal to the frames pushed; ``reference_experiment`` through the
    shim for 100 steps on the card within 1e-9 of ``--device cpu``;
@@ -197,7 +212,7 @@ from msgwam_tpu_torch.ops import (collective, projection_cuda, ray_physics,
                                   rhs_cuda, rhs_cuda_windowed, step_cuda,
                                   step_cuda_stream)
 from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
-                                       make_mesh, sharded_simulate,
+                                       make_mesh, shard_state, sharded_simulate,
                                        stack_ensemble)
 from msgwam_tpu_torch.state import tree_map
 from msgwam_tpu_torch.utils import history_io
@@ -1556,42 +1571,63 @@ def plain_route(cfg):
                        interp_backend="mxu", window_cells=0)
 
 
-def adjoint_run(run_fn, state, theta):
+def collective_counts() -> tuple:
+    """The flux's all-reduces and f's (``ops/collective.py``) since the
+    last reset, which this resets."""
+    counts = (collective.ALL_REDUCES, collective.BACKWARD_ALL_REDUCES)
+    collective.ALL_REDUCES = collective.BACKWARD_ALL_REDUCES = 0
+    return counts
+
+
+def adjoint_run(run_fn, state, theta, wind: bool = False):
     """Forward and backward of L = sum((u_final - u0)^2), the density
     scaled by ``scale * (1 + eps * theta)``, at scale 1 and eps 0: dL/dscale
-    and dL/deps (the derivative along theta), the final state, and the
-    forward's and the backward's wall time."""
+    and dL/deps (the derivative along theta), with ``wind`` dL/du0 too
+    (``d_u``, a tensor), the final state, the forward's and the backward's
+    wall time, and the all-reduces of each (``reduces``: the flux's
+    forward, the flux's and f's backward)."""
     device = state.rays.r.device
     scale = torch.ones((), device=device, requires_grad=True)
     eps = torch.zeros((), device=device, requires_grad=True)
     dens = state.rays.dens * scale * (1.0 + eps * theta)
+    u0 = state.mean.u.clone().requires_grad_(wind)
     torch.cuda.synchronize()
+    collective_counts()
     t0 = time.perf_counter()
-    final = run_fn(state._replace(rays=state.rays._replace(dens=dens)))
+    final = run_fn(state._replace(rays=state.rays._replace(dens=dens),
+                                  mean=state.mean._replace(u=u0)))
     loss = ((final.mean.u - state.mean.u) ** 2).sum()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    fwd = collective_counts()
     loss.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     grads = (float(scale.grad), float(eps.grad))
     check(all(math.isfinite(g) and g != 0.0 for g in grads),
           f"gradient not finite and nonzero: {grads}")
-    final = tree_map(torch.Tensor.detach, final)
-    return {"d_scale": grads[0], "d_theta": grads[1], "fwd_s": t1 - t0,
-            "bwd_s": t2 - t1}, final
+    res = {"d_scale": grads[0], "d_theta": grads[1], "fwd_s": t1 - t0,
+           "bwd_s": t2 - t1, "reduces": [fwd[0], *collective_counts()]}
+    if wind:
+        check(bool(torch.isfinite(u0.grad).all()) and bool(u0.grad.any()),
+              "dL/du0 not finite and nonzero")
+        res["d_u"] = u0.grad
+    return res, tree_map(torch.Tensor.detach, final)
 
 
 def grad_errs(got: dict, want: dict) -> dict:
-    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("d_scale", "d_theta")}
+    errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("d_scale", "d_theta")}
+    if "d_u" in got:
+        errs["d_u"] = rel(want["d_u"], got["d_u"])
+    return errs
 
 
-def peak_run(run_fn, state, theta) -> dict:
+def peak_run(run_fn, state, theta, wind: bool = False) -> dict:
     """adjoint_run with the peak of allocated device memory over it."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    res, final = adjoint_run(run_fn, state, theta)
+    res, final = adjoint_run(run_fn, state, theta, wind)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["peak_over_inputs_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
     return res, final
@@ -1952,6 +1988,11 @@ N_SHARD = 1_000_000      # the bench population at full width, 5e5 a rank of 2
 SHARD_STEPS = 20         # the sharded Path A run whose launches are counted
 WORKER_TIMEOUT_S = 420   # each gloo rank's own limit: a hang fails [15]
 HERE = Path(__file__).resolve().parent
+GRAD_STEPS = 10          # [15](a)'s gradient through sharded Path A, remat=True
+GLOO_GRAD_STEPS = 5      # [15](b)'s, over two gloo ranks
+WORLD1_GRAD_BAR = 1e-6   # a world of 1 against unsharded, where not bitwise
+GLOO_GRAD_BAR = 1e-4     # two gloo ranks against unsharded
+ENS_RUN = dict(dt=DT, n_steps=9, save_every=9)   # [15](b)'s ensemble run
 
 
 def compute_mode() -> str:
@@ -1970,6 +2011,52 @@ def sharded_run(mesh, state, statics, bg, cfg, n_steps: int):
     final, _, _ = sharded_simulate(mesh, state, statics, bg, cfg, run)
     torch.cuda.synchronize()
     return final, time.perf_counter() - t0
+
+
+def path_a_grad_fn(statics, bg, cfg, n_steps: int, mesh=None):
+    """``adjoint_run``'s run function for Path A with ``remat=True``: the
+    whole state split by ``shard_state`` and run by ``simulate`` with the
+    mesh's ray group (what ``sharded_simulate`` runs, with ``remat``), or
+    unsharded without a ``mesh``."""
+    run = mtt.RunConfig(dt=DT, n_steps=n_steps, save_every=n_steps)
+    if mesh is None:
+        return lambda s: mtt.simulate(s, statics, bg, cfg, run, validate=False,
+                                      remat=True)[0]
+    group = mesh.get_group("rays")
+
+    def fn(s):
+        s, st = shard_state(mesh, s, statics)
+        return mtt.simulate(s, st, bg, cfg, run, axis_name=group,
+                            validate=False, remat=True)[0]
+
+    return fn
+
+
+def shard_theta(device):
+    """The seeded direction of [15]'s gradients, the same in every
+    process."""
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randn(N_SHARD, generator=gen).to(device)
+
+
+def ensemble_grad_fn(statics, bg, cfg, mesh=None):
+    """``adjoint_run``'s run function for configs[4]'s ensemble on the
+    ``mega`` route (K7), on a mesh or not."""
+    run = mtt.RunConfig(**ENS_RUN)
+    return lambda s: ensemble_simulate(s, statics, bg, cfg, run, mesh=mesh,
+                                       backend="mega")[0]
+
+
+def ensemble_theta(device):
+    gen = torch.Generator().manual_seed(SEED + 1)
+    return torch.randn(N_MEMBERS, N_PER_MEMBER, generator=gen).to(device)
+
+
+def host_grads(res: dict) -> dict:
+    """``adjoint_run``'s gradients as NumPy, for an ``.npz``."""
+    return {"d_scale": res["d_scale"], "d_theta": res["d_theta"],
+            "d_u": res["d_u"].cpu().numpy(), "reduces": res["reduces"],
+            "bwd_s": res["bwd_s"]}
 
 
 def rays_mesh():
@@ -2088,7 +2175,7 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
     emesh = make_mesh(2, axis="ensemble")
     cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
     sp, stp = stack_ensemble(mem_p)
-    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=9)
+    run9 = mtt.RunConfig(**ENS_RUN)
     reset_launches()
     fe, _, mhe = ensemble_simulate(sp, stp, bg_p, cfg_p, run9, mesh=emesh,
                                    backend="mega")
@@ -2096,7 +2183,20 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
     ens_counts = launches()
     ends = [0, N_MEMBERS - 1]
     host = lambda x: x.detach().cpu().numpy()
-    np.savez(f"{out}/gloo{rank}.npz",
+
+    # gradients: Path A over GLOO_GRAD_STEPS with remat, and the ensemble
+    grad, _ = adjoint_run(path_a_grad_fn(statics, bg, cfg, GLOO_GRAD_STEPS,
+                                         mesh), state, shard_theta(device),
+                          wind=True)
+    ens_grad, _ = adjoint_run(ensemble_grad_fn(stp, bg_p, cfg_p, emesh), sp,
+                              ensemble_theta(device), wind=True)
+    log(f"[15] gloo rank {rank}: Path A gradient over {GLOO_GRAD_STEPS} steps "
+        f"(remat=True): all-reduces {grad['reduces']}, backward "
+        f"{grad['bwd_s']:.4f} s; ensemble gradient: all-reduces "
+        f"{ens_grad['reduces']}, backward {ens_grad['bwd_s']:.4f} s")
+    grads = {f"grad_{k}": v for k, v in host_grads(grad).items()}
+    grads.update({f"ens_grad_{k}": v for k, v in host_grads(ens_grad).items()})
+    np.savez(f"{out}/gloo{rank}.npz", **grads,
              **{f: host(getattr(fin.rays, f)) for f in ("dens", "r", "m")},
              u=host(fin.mean.u), v=host(fin.mean.v),
              launches=json.dumps(counts), reduces=reduces,
@@ -2109,9 +2209,17 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_gloo(five, smi: str) -> dict:
-    """[15](b): two gloo ranks on the one card, as spawned processes."""
+def phase_gloo(five, want_grad: dict, smi: str) -> dict:
+    """[15](b): two gloo ranks on the one card, as spawned processes, each
+    within its own ``WORKER_TIMEOUT_S`` of their start.  ``five``: the
+    unsharded Path A state after 5 steps; ``want_grad``: the unsharded
+    gradient over ``GLOO_GRAD_STEPS`` (``adjoint_run`` with the wind)."""
     device = five.rays.r.device
+    cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
+    sp, stp = stack_ensemble(mem_p)
+    want_ens, _ = adjoint_run(ensemble_grad_fn(stp, bg_p, cfg_p), sp,
+                              ensemble_theta(device), wind=True)
+    del sp, stp
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{tmp}/store"
         procs = [subprocess.Popen(
@@ -2121,7 +2229,9 @@ def phase_gloo(five, smi: str) -> dict:
             text=True) for rank in range(2)]
         t0 = time.perf_counter()
         try:
-            outs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
+            outs = [p.communicate(timeout=max(
+                1.0, t0 + WORKER_TIMEOUT_S - time.perf_counter()))[0]
+                for p in procs]
         finally:
             for p in procs:
                 p.kill()
@@ -2150,8 +2260,31 @@ def phase_gloo(five, smi: str) -> dict:
         check(ens == {k: 0 for k in ens} | {"K7": 1},
               f"gloo rank {rank}: ensemble launches {ens}")
 
-    cfg_p, bg_p, mem_p = ensemble_members(device, 0.1)
-    run9 = mtt.RunConfig(dt=DT, n_steps=9, save_every=9)
+    # the gradients against the unsharded and meshless runs
+    grad_errs_ = {}
+    per_step = 3 * GLOO_GRAD_STEPS
+    for rank, r in enumerate(res):
+        for name, want, bar, reduces in (
+                ("Path A", want_grad, GLOO_GRAD_BAR,
+                 [per_step, 2 * per_step, per_step - 1]),
+                ("ensemble", want_ens, ADJ_BAR, [0, 0, 0])):
+            key = "grad_" if name == "Path A" else "ens_grad_"
+            got = {k: float(r[key + k]) for k in ("d_scale", "d_theta")}
+            got["d_u"] = torch.from_numpy(r[key + "d_u"])
+            e = grad_errs(got, want)
+            grad_errs_[f"{name}, rank {rank}"] = e
+            for k, v in e.items():
+                check(v < bar, f"gloo rank {rank}: {name} {k} off by {v:.3e}")
+            # f's backward runs where the loss reads what the ray side
+            # computed: not for the last stage, whose rays the wind-only
+            # loss does not read
+            check(r[key + "reduces"].tolist() == reduces,
+                  f"gloo rank {rank}: {name} gradient's all-reduces "
+                  f"{r[key + 'reduces'].tolist()}, not {reduces}")
+    bwd_s = {rank: (float(r["grad_bwd_s"]), float(r["ens_grad_bwd_s"]))
+             for rank, r in enumerate(res)}
+
+    run9 = mtt.RunConfig(**ENS_RUN)
     member_errs = {}
     for i, e in enumerate((0, N_MEMBERS - 1)):
         f1, _, h1 = step_cuda_stream.simulate_streaming(*mem_p[e], bg_p, cfg_p,
@@ -2172,9 +2305,15 @@ def phase_gloo(five, smi: str) -> dict:
         f"{walls} ms a step; one all-reduce {reduce_ms} ms (host wall); "
         f"configs[4] ensemble, 4 members a rank, one K7 launch each: "
         f"{member_errs}; both ranks {wall:.1f} s in all on {smi}")
+    log(f"[15](b) gradients (dL/dscale, dL/dtheta, dL/du0) against the "
+        f"unsharded Path A run ({GLOO_GRAD_STEPS} steps, remat=True) and the "
+        f"meshless K7 run: {grad_errs_}; backward walls (Path A, ensemble) "
+        f"{bwd_s} s; unsharded {want_grad['bwd_s']:.4f} s, meshless "
+        f"{want_ens['bwd_s']:.4f} s")
     return {"errs": errs, "wall_ms_per_step": walls,
             "all_reduce_wall_ms": reduce_ms, "member_errs": member_errs,
-            "wall_s": wall}
+            "grad_errs": grad_errs_, "grad_bwd_s": bwd_s,
+            "ens_bwd_s_meshless": want_ens["bwd_s"], "wall_s": wall}
 
 
 def phase_sharding(device, smi: str) -> dict:
@@ -2228,6 +2367,50 @@ def phase_sharding(device, smi: str) -> dict:
         f"{fmt(tail['errs'])}; {tail['ms']:.5f} ms a launch (wind tail "
         f"{tail['wind_tail_ms']:.5f} ms); one NCCL all-reduce {nccl}")
 
+    # (a) the gradient through sharded Path A with remat=True, against the
+    # same run unsharded: dL/dscale, dL/dtheta, dL/du0
+    theta = shard_theta(device)
+    for m in (None, mesh):                                  # warm-up
+        adjoint_run(path_a_grad_fn(statics, bg, cfg, 1, m), state, theta,
+                    wind=True)
+    grads = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        reset_launches()
+        grads[name], _ = peak_run(path_a_grad_fn(statics, bg, cfg, GRAD_STEPS, m),
+                                  state, theta, wind=True)
+        grads[name]["launches"] = expect_launches(
+            f"{name} Path A gradient", K4=6 * GRAD_STEPS,
+            K4_flux=6 * GRAD_STEPS if m else 0)
+    g_u, g_s = grads["unsharded"], grads["sharded"]
+    g_bitwise = (g_u["d_scale"] == g_s["d_scale"]
+                 and g_u["d_theta"] == g_s["d_theta"]
+                 and torch.equal(g_u["d_u"], g_s["d_u"]))
+    g_errs = grad_errs(g_s, g_u)
+    for k, v in g_errs.items():
+        check(v < WORLD1_GRAD_BAR, f"sharded Path A gradient (world of 1): "
+              f"{k} off the unsharded one by {v:.3e}")
+    # a world of 1 skips f (a sum over one rank); the flux's all-reduces
+    # run again in the checkpoint's replay and in K4's plain rerun
+    check(g_s["reduces"] == [3 * GRAD_STEPS, 6 * GRAD_STEPS, 0],
+          f"sharded Path A gradient: all-reduces {g_s['reduces']}, predicted "
+          f"3 a step forward, 6 a step backward")
+    for g in (g_u, g_s):
+        g.pop("d_u")
+        g["bwd_ms_per_step"] = g["bwd_s"] * 1e3 / GRAD_STEPS
+        g["fwd_ms_per_step"] = g["fwd_s"] * 1e3 / GRAD_STEPS
+    log(f"[15](a) gradient through sharded Path A at {N_SHARD} rays, "
+        f"{GRAD_STEPS} steps, remat=True (world of 1) vs unsharded: bitwise "
+        f"{g_bitwise}, {fmt(g_errs)}; all-reduces (forward, backward flux, "
+        f"backward f) {g_s['reduces']}; launches {g_s['launches']}; a step "
+        f"forward {g_s['fwd_ms_per_step']:.3f} ms, backward "
+        f"{g_s['bwd_ms_per_step']:.3f} ms (unsharded "
+        f"{g_u['fwd_ms_per_step']:.3f}, {g_u['bwd_ms_per_step']:.3f}); "
+        f"max_memory_allocated {g_s['peak_gib']:.3f} GiB (unsharded "
+        f"{g_u['peak_gib']:.3f}) on {smi}")
+    want_grad, _ = adjoint_run(path_a_grad_fn(statics, bg, cfg, GLOO_GRAD_STEPS),
+                               state, theta, wind=True)
+    del theta
+
     routes = {}
     for name, per_step, kw in (
             ("K2", 3, dict()),
@@ -2255,7 +2438,7 @@ def phase_sharding(device, smi: str) -> dict:
             f"launches {rc[name]}, all-reduces {3 * per_step}")
         routes[name] = r
 
-    gloo = phase_gloo(five, smi)
+    gloo = phase_gloo(five, want_grad, smi)
 
     # (c) --shard through the driver, in this process's world of 1
     args = ["--preset", "fast", "--kernels", "windowed", "--steps",
@@ -2284,6 +2467,8 @@ def phase_sharding(device, smi: str) -> dict:
             "wall_ms_per_step": wall_s * 1e3 / SHARD_STEPS,
             "unsharded_wall_ms_per_step": wall_u * 1e3 / SHARD_STEPS,
             "profile": prof_s, "unsharded_profile": prof_u, "k4_flux_tail": tail,
+            "grad": {"bitwise": g_bitwise, "errs": g_errs, "sharded": g_s,
+                     "unsharded": g_u},
             "nccl_all_reduce": nccl, "routes": routes, "gloo": gloo,
             "cli": {"launches": sh["launches"], "all_reduces": cli_reduces,
                     "step10_errs": cli_errs}}
@@ -2320,6 +2505,54 @@ def stream_twin_errs(state, statics, bg, cfg, run, got_rays, got_u) -> dict:
         float((w.double().cpu() - getattr(got_rays, f).double().cpu())
               .abs().max()) for f, w in want.items())
     return errs
+
+
+K7_WATCH_STEPS = (1, 2, 5, 10, 20, 30, 40, 50, 60)   # steps logged
+K7_WATCH_FACTOR = 10     # K7's gap past float32's own that marks a fault
+
+
+def k7_watch(cfg, bg, states, statics, run) -> dict:
+    """Config 5's members step by step: K7 one launch a step, and the
+    scan backend (``simulate`` member by member) in float32, each against
+    the scan backend in float64.  Where K7's error outgrows the float32
+    plain path's by ``K7_WATCH_FACTOR``, the first step and field; also the
+    60 one-step launches against the one 60-step launch."""
+    one = mtt.RunConfig(dt=run.dt, n_steps=1, save_every=1)
+    k7, s = [], states
+    for _ in range(run.n_steps):
+        s = ensemble_simulate(s, statics, bg, cfg, one, backend="mega")[0]
+        k7.append(s)
+    whole = ensemble_simulate(states, statics, bg, cfg, run, backend="mega")[0]
+    split = {f: rel(getattr(whole.rays, f), getattr(k7[-1].rays, f))
+             for f in ("dens", "r", "m")}
+    split["u"] = rel(whole.mean.u, k7[-1].mean.u)
+    steps = mtt.RunConfig(dt=run.dt, n_steps=run.n_steps, save_every=1)
+    keep = lambda st, stat, aux: st
+    h32 = ensemble_simulate(states, statics, bg, cfg, steps, observe=keep)[2]
+    h64 = ensemble_simulate(to64(states), to64(statics), to64(bg),
+                            cfg.replace(dtype="float64"), steps,
+                            observe=keep)[2]
+    fields = ("dens", "r", "m", "u")
+    n_members = states.rays.r.shape[0]
+    pick = lambda st, f: st.mean.u if f == "u" else getattr(st.rays, f)
+    errs = {"k7": {f: [] for f in fields}, "f32": {f: [] for f in fields}}
+    first = None
+    for t in range(run.n_steps):
+        for f in fields:
+            want = lambda e: pick(h64, f)[e, t]
+            k = max(rel(want(e), pick(k7[t], f)[e]) for e in range(n_members))
+            p = max(rel(want(e), pick(h32, f)[e, t]) for e in range(n_members))
+            errs["k7"][f].append(k)
+            errs["f32"][f].append(p)
+            if first is None and k > K7_WATCH_FACTOR * max(p, 1e-7):
+                first = {"step": t + 1, "field": f, "k7": k, "f32": p}
+    members_u = [rel(pick(h64, "u")[e, -1], k7[-1].mean.u[e])
+                 for e in range(n_members)]
+    return {"first_divergence": first, "split_vs_one_launch": split,
+            "members_u_vs_f64": members_u,
+            "steps": {t: {kind: {f: errs[kind][f][t - 1] for f in fields}
+                          for kind in errs} for t in K7_WATCH_STEPS
+                      if t <= run.n_steps}}
 
 
 def phase_examples(device, smi: str) -> dict:
@@ -2437,11 +2670,19 @@ def phase_examples(device, smi: str) -> dict:
         f"{twin5}")
     for line in (c1_out + c2_out + c5_out).splitlines():
         log(f"[16]   {line}")
+    watch = k7_watch(cfg5, bg5, states5, statics5, run5)
+    log(f"[16] config 5, K7 watch: K7 (a launch a step) and the float32 scan "
+        f"backend against the float64 scan backend, the largest member error "
+        f"at steps {K7_WATCH_STEPS}: {watch['steps']}; first step where K7's "
+        f"error passes {K7_WATCH_FACTOR}x float32's own: "
+        f"{watch['first_divergence']}; each member's u at step "
+        f"{run5.n_steps} {watch['members_u_vs_f64']}; 60 one-step launches "
+        f"vs one 60-step launch {fmt(watch['split_vs_one_launch'])}")
     res["config_ladder"] = {"configs_1_2_wall_s": wall12,
                             "config_5_launches": c5_counts["K7"],
                             "config_5_wall_s": wall5,
                             "member_errs": member_errs,
-                            "member_errs_vs_twin": twin5}
+                            "member_errs_vs_twin": twin5, "k7_watch": watch}
 
     # critical_level_relaunch at its defaults, streamed and read back
     with tempfile.TemporaryDirectory() as tmp:

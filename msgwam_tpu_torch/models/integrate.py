@@ -25,7 +25,7 @@ from ..ops.ray_physics import third
 from ..ops.saturation import saturate_direct
 from ..state import Background, RayStatics, State, torch_dtype, tree_axpy, tree_map
 from . import sources as _sources
-from .rhs import rhs as rhs_default
+from .rhs import ray_side, rhs as rhs_default
 
 
 def validate_inputs(state: State, statics: RayStatics, bg: Background,
@@ -181,13 +181,15 @@ def step(
     streaming kernel does."""
     prev = state
     if axis_name is not None:
-        collective.forward_only("step", axis_name, dt, state, statics, bg)
+        collective.check_group(axis_name)
     with collective.checked(axis_name):
         state = rk3_step(dt, state, statics, bg, cfg, axis_name, rhs)
     aux = StepAux(dens_prop=state.rays.dens)
 
     if not cfg.saturate_online:
         rays, prev_rays = state.rays, prev.rays
+        # the rays' read of the replicated background (ray sharding)
+        _, ray_bg = ray_side(None, bg, axis_name)
         # Reference quirk 2: the height rate is divided by 1, not dt
         r_div = 1.0 if cfg.faithful_offline_rates else dt
         dens = saturate_direct(
@@ -204,8 +206,8 @@ def step(
             statics.dkk,
             statics.dll,
             statics.rr_mm_area,
-            bg.centers,
-            bg.rhobar,
+            ray_bg.centers,
+            ray_bg.rhobar,
             cfg.bvf,
             cfg.kappa,
             cfg.phi0,
@@ -307,15 +309,20 @@ def simulate(
     and statics are this rank's block of the rays and the replicated wind,
     and every RHS evaluation sums its flux over the ranks.  The sort, the
     cull and the relaunch stay local to each rank, as inside the JAX
-    package's ``shard_map``.  A sharded run is forward only: its inputs
-    are checked once, and its steps run under ``torch.no_grad()``.
+    package's ``shard_map``.  A sharded run is differentiable as an
+    unsharded one is, when every rank computes the same loss from whole
+    (:func:`~msgwam_tpu_torch.parallel.sharding.gather_state`) or
+    replicated outputs: each RHS evaluation that a gradient passes makes
+    one more all-reduce in the backward (the replicated wind's and
+    background's cotangent, :mod:`msgwam_tpu_torch.ops.collective`), and
+    a step replayed by ``remat`` or rerun by a kernel's backward makes its
+    flux all-reduces again.
     """
     if remat not in (False, True, "full"):
         raise ValueError(f"remat must be False, True or 'full', got {remat!r}")
     keyed_source = callable(source)
     if axis_name is not None:
-        collective.forward_only("simulate", axis_name, state, statics, bg,
-                                None if keyed_source else source)
+        collective.check_group(axis_name)
     if keyed_source and source_key is None:
         raise ValueError("a callable source requires source_key")
 

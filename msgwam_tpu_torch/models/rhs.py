@@ -18,7 +18,11 @@ Under ray sharding ``axis_name`` is the ProcessGroup of the ranks that
 share the rays: each rank deposits its own rays, and the interior flux is
 summed over the ranks (:func:`msgwam_tpu_torch.ops.collective.
 all_reduce_flux`) before the wind tendencies, as the JAX package's
-``psum`` is; a sharded call is forward only.
+``psum`` is.  A sharded call is differentiable: the rays read the
+replicated wind and background through :func:`msgwam_tpu_torch.ops.
+collective.replicated`, whose backward sums their cotangent over the ranks
+(one all-reduce an evaluation), and the flux's sum passes its cotangent
+through unchanged.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ def rhs(
     (a structural zero), never as a tensor of zeros.  ``axis_name``: the
     ProcessGroup to sum the flux over (ray sharding), or ``None``."""
     if axis_name is not None:
-        collective.forward_only("rhs", axis_name, dt, state, statics, bg)
+        collective.check_group(axis_name)
     if cfg.rhs_backend == "pallas":
         return _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name)
     if cfg.rhs_backend != "xla":
@@ -86,6 +90,20 @@ def _summed(pm_interior, cfg: ModelConfig, axis_name):
     if axis_name is None or not cfg.prognostic_mean:
         return pm_interior
     return collective.all_reduce_flux(pm_interior, axis_name)
+
+
+def ray_side(mean: MeanState, bg: Background, axis_name):
+    """The replicated wind and background as a rank's rays read them:
+    under ray sharding, through :func:`msgwam_tpu_torch.ops.collective.
+    replicated` (one all-reduce of their cotangent in the backward, where
+    a gradient is recorded); as they are otherwise.  ``mean=None`` for the
+    background alone."""
+    if axis_name is None:
+        return mean, bg
+    if mean is None:
+        return None, Background(*collective.replicated(axis_name, *bg))
+    out = collective.replicated(axis_name, *mean, *bg)
+    return MeanState(*out[:2]), Background(*out[2:])
 
 
 def _mean_tendencies(pm_interior, mean: MeanState, bg: Background,
@@ -112,7 +130,9 @@ def _rhs_xla(
     cfg: ModelConfig,
     axis_name=None,
 ) -> State:
-    ray_st, pm_interior = ray_tendencies(dt, state, statics, bg, cfg)
+    ray_mean, ray_bg = ray_side(state.mean, bg, axis_name)
+    ray_st, pm_interior = ray_tendencies(dt, State(state.rays, ray_mean),
+                                         statics, ray_bg, cfg)
     pm_interior = _summed(pm_interior, cfg, axis_name)
     du_st, dv_st = _mean_tendencies(pm_interior, state.mean, bg, cfg)
     return State(ray_st, MeanState(du_st, dv_st))
@@ -210,7 +230,9 @@ def _rhs_via_fused_kernel(dt, state, statics, bg, cfg, axis_name=None) -> State:
         from ..ops.rhs_cuda import rhs_fused
 
     rays, mean = state
-    tend, pm_interior = rhs_fused(dt, state, statics, bg, cfg)
+    ray_mean, ray_bg = ray_side(mean, bg, axis_name)
+    tend, pm_interior = rhs_fused(dt, State(rays, ray_mean), statics, ray_bg,
+                                  cfg)
     pm_interior = _summed(pm_interior, cfg, axis_name)
     du_st, dv_st = _mean_tendencies(pm_interior, mean, bg, cfg)
     dtype = rays.dens.dtype

@@ -42,8 +42,11 @@ package's XLA glue, ``rhs_pallas_windowed.py:492-508``).  Without
 ``axis_name`` K4's arguments and launches are those of one rank.
 
 Like K2, both take float32 only: a float64 state raises ``TypeError``
-(the JAX kernels cast it to float32 and back).  Both are differentiable
-when unsharded: their backwards run the composable path (:mod:`.adjoint`).
+(the JAX kernels cast it to float32 and back).  Both are differentiable,
+sharded or not: their backwards run the composable path (:mod:`.adjoint`),
+and a sharded K4 step's backward runs the sharded one, which makes the
+step's three flux all-reduces again and up to three more for the
+replicated wind's cotangent (:mod:`.collective`).
 For CPU tensors each entry point runs its plain twin
 (:func:`rhs_fused_windowed_reference`,
 :func:`rk3_step_fused_windowed_reference`); ``LAUNCHES`` counts kernel
@@ -255,25 +258,26 @@ def rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name=None):
     ``axis_name``, the ProcessGroup of the ranks that share the rays:
     each stage's flux is summed over them between K4 (in its flux tail)
     and the wind's update, as the JAX package's ``psum`` under
-    ``shard_map`` is; forward only."""
+    ``shard_map`` is; the backward differentiates the generic step with
+    the same ``axis_name``, as ``_rk3_step_fused_bwd`` does."""
     rhs_cuda.check_inputs(state, statics, bg, "rk3_step_fused_windowed")
     kernel = (_rk3_step_kernel if state.rays.r.device.type == "cuda"
               else _rk3_step_reference)
     if axis_name is not None:
-        collective.forward_only("rk3_step_fused_windowed", axis_name, dt,
-                                state, statics, bg)
-        return kernel(dt, state, statics, bg, cfg, group=axis_name)
-    return adjoint.kernel_call(functools.partial(kernel, cfg=cfg),
-                               functools.partial(_rk3_step_plain, cfg=cfg),
-                               dt, state, statics, bg)
+        collective.check_group(axis_name)
+    return adjoint.kernel_call(
+        functools.partial(kernel, cfg=cfg, group=axis_name),
+        functools.partial(_rk3_step_plain, cfg=cfg, axis_name=axis_name),
+        dt, state, statics, bg)
 
 
-def _rk3_step_plain(dt, state, statics, bg, cfg):
+def _rk3_step_plain(dt, state, statics, bg, cfg, axis_name=None):
     from ..models.integrate import williamson_rk3
     from ..models.rhs import rhs
 
     xla_cfg = adjoint.plain_config(cfg)
-    return williamson_rk3(lambda s: rhs(dt, s, statics, bg, xla_cfg), state, dt)
+    return williamson_rk3(lambda s: rhs(dt, s, statics, bg, xla_cfg, axis_name),
+                          state, dt)
 
 
 def rk3_step_fused_windowed_reference(dt, state, statics, bg, cfg, plan=None):

@@ -17,8 +17,7 @@ rank's device is ``cuda:LOCAL_RANK`` unless the caller names another one
 unless the caller names it; it is never switched behind the caller's
 back.  NCCL takes one rank per card: two ranks on one card raise, naming
 gloo, whose ``all_reduce`` takes CUDA tensors (and whose ``all_gather``
-:func:`msgwam_tpu_torch.parallel.sharding.gather_state` runs through the
-host).
+:func:`all_gather` runs through the host).
 
 Only ensemble members should be split across hosts (members never
 communicate), so a 2-D ``('ensemble', 'rays')`` mesh puts ``ensemble``
@@ -164,11 +163,46 @@ def mesh_position(mesh, name: str) -> tuple:
             dist.get_world_size(mesh.get_group(name)))
 
 
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks ``x`` of ``group``'s ranks joined in rank order along
+    ``dim``, on every rank, on ``x``'s device and in its dtype (bool
+    through bytes).  Under gloo, whose ``all_gather`` takes CPU tensors
+    only (its ``all_reduce`` takes CUDA tensors too), through the host.
+    Outside autograd."""
+    y = x.detach()
+    if y.dtype == torch.bool:
+        y = y.to(torch.uint8)
+    if dist.get_backend(group) == "gloo":
+        y = y.cpu()
+    y = y.contiguous()
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    return torch.cat(parts, dim=dim).to(x.device, x.dtype)
+
+
+class _Split(torch.autograd.Function):
+    """The split of a whole array, the same on every rank, into this
+    rank's block; backward, the blocks' cotangents gathered into the
+    whole array's (each rank's block in its place: their sum over the
+    ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, lo, size, group):
+        ctx.dim, ctx.group = dim, group
+        return x.narrow(dim, lo, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.dim, ctx.group), None, None, None, None
+
+
 def local_block(mesh, spec: P, x):
     """This rank's block of ``x`` (a tensor or a NumPy array) under
     ``spec``: rank i of the mesh dimension holds the rows ``[i n / k,
     (i + 1) n / k)`` of the split dimension, the layout of JAX's
-    ``P(axis)``; the whole of ``x`` when ``spec`` is replicated."""
+    ``P(axis)``; the whole of ``x`` when ``spec`` is replicated.  A tensor
+    that needs a gradient gets the split's backward: the whole array's
+    cotangent, gathered from every rank's block (one ``all_gather``)."""
     split = spec.split()
     if split is None:
         return x
@@ -178,6 +212,9 @@ def local_block(mesh, spec: P, x):
     if n % k:
         raise ValueError(f"dimension {d} of length {n} does not divide over "
                          f"the {k} ranks of mesh dimension {name!r}")
+    if (isinstance(x, torch.Tensor) and x.requires_grad
+            and torch.is_grad_enabled()):
+        return _Split.apply(x, d, i * n // k, n // k, mesh.get_group(name))
     index = (slice(None),) * d + (slice(i * n // k, (i + 1) * n // k),)
     return x[index]
 

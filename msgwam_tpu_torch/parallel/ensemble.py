@@ -16,7 +16,13 @@ its ranks, each rank taking a contiguous block (JAX's ``P("ensemble")``),
 and the member count must divide the ranks.  Each rank runs its own
 members, in turn (``scan``) or as one launch a window (``mega``: K7, K6
 with one member a rank); members never communicate, so the only
-collective is the gather of every output, member-leading, to every rank.
+collective of a forward is the gather of every output, member-leading, to
+every rank.  Both routes are differentiable on a mesh when every rank
+computes the same loss from the gathered outputs: the backward gathers the
+members' cotangents into the whole inputs' (one ``all_gather`` a leaf that
+needs a gradient) and sums the background's over the ranks (one
+all-reduce).  A parameter that reaches the members only through
+``wind_fn`` gets its own rank's members' share.
 """
 
 from __future__ import annotations
@@ -44,8 +50,12 @@ def stack_ensemble(members):
 def _on_mesh(mesh, axis: str, run_local: Callable, states, statics, sources,
              wind_fn, bg):
     """``run_local(states, statics, sources, wind_fn, bg)`` on this rank's
-    block of members, its outputs gathered member-leading to every rank."""
-    from .distributed import P, local_device, mesh_position
+    block of members, its outputs gathered member-leading to every rank.
+    Differentiable: the members' split and the outputs' gather carry their
+    conjugate backwards, and the replicated background, which only this
+    rank's members read here, sums its cotangent over the ranks."""
+    from ..ops import collective
+    from .distributed import P, local_block, local_device, mesh_position
     from .sharding import gather_state
 
     n_members = states.rays.r.shape[0]
@@ -53,14 +63,15 @@ def _on_mesh(mesh, axis: str, run_local: Callable, states, statics, sources,
     if n_members % k:
         raise ValueError(f"{n_members} ensemble members do not divide over "
                          f"the {k} ranks of mesh dimension {axis!r}")
-    block = slice(i * n_members // k, (i + 1) * n_members // k)
     device = local_device()
-    local = lambda tree: tree_map(lambda x: x[block].to(device), tree)
+    local = lambda tree: tree_map(
+        lambda x: local_block(mesh, P(axis), x.to(device)), tree)
     if isinstance(wind_fn, (list, tuple)):
-        wind_fn = wind_fn[block]
+        wind_fn = wind_fn[i * n_members // k:(i + 1) * n_members // k]
+    bg = Background(*collective.replicated(
+        mesh.get_group(axis), *(x.to(device) for x in bg)))
     out = run_local(local(states), local(statics),
-                    None if sources is None else local(sources), wind_fn,
-                    tree_map(lambda x: x.to(device), bg))
+                    None if sources is None else local(sources), wind_fn, bg)
     return gather_state(mesh, out, tree_map(lambda _: P(axis), out))
 
 

@@ -16,9 +16,20 @@ JAX runs one program over the mesh and returns global arrays; here each
 rank runs this module's functions on its own block and gets its own block
 back: :func:`gather_state` assembles whole arrays on every rank.  The sums
 over ranks take another order than one rank's sum, so a sharded run
-matches an unsharded one to roundoff, not bitwise.  Sharded runs are
-forward only, and a callable (keyed) source is refused, as in the JAX
-package.
+matches an unsharded one to roundoff, not bitwise.  A callable (keyed)
+source is refused, as in the JAX package.
+
+Gradients follow ``requires_grad``, as ``jax.grad`` runs through
+``shard_map``, provided every rank computes the same loss from whole
+(gathered) or replicated outputs.  The backward of :func:`shard_state`'s
+split gathers the blocks' cotangents into the whole array's (one
+``all_gather`` a leaf that needs a gradient), so a replicated parameter
+upstream of the state gets its whole gradient on every rank; the backward
+of :func:`gather_state` keeps this rank's block of a cotangent that is the
+same on every rank; the RHS adds one all-reduce an evaluation for the
+replicated wind's and background's cotangent
+(:mod:`msgwam_tpu_torch.ops.collective`).  Bool and integer leaves carry
+no gradient.
 """
 
 from __future__ import annotations
@@ -31,8 +42,8 @@ import torch.distributed as dist
 from ..config import ModelConfig, RunConfig
 from ..models.integrate import simulate, step
 from ..state import Background, MeanState, RayState, RayStatics, State, tree_map
-from .distributed import (P, global_mesh, initialize, local_block, local_device,
-                          mesh_position)
+from .distributed import (P, all_gather, global_mesh, initialize, local_block,
+                          local_device, mesh_position)
 
 RAY_AXIS = "rays"
 
@@ -66,8 +77,10 @@ def ray_sharding_specs(axis: str = RAY_AXIS):
 
 
 def _place(mesh, spec_tree, tree):
+    # to the device first: the split's backward then runs on the device's
+    # autograd thread, in order with the run's other collectives
     device = local_device()
-    return tree_map(lambda s, x: local_block(mesh, s, x).to(device),
+    return tree_map(lambda s, x: local_block(mesh, s, x.to(device)),
                     spec_tree, tree)
 
 
@@ -186,23 +199,30 @@ def _default_spec(tree, axis: str):
                      "history: the runner's out_specs)")
 
 
+class _Gather(torch.autograd.Function):
+    """The gather of the ranks' blocks into the whole array; backward,
+    this rank's block of the whole array's cotangent, which is the same
+    on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.rank, ctx.size = dim, dist.get_rank(group), x.shape[dim]
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
 def _gather(mesh, spec: P, x: torch.Tensor) -> torch.Tensor:
     split = spec.split()
     if split is None:
         return x
     d, name = split
     group = mesh.get_group(name)
-    y = x.detach()
-    if y.dtype == torch.bool:
-        y = y.to(torch.uint8)
-    # gloo's all_gather takes CPU tensors only (its all_reduce takes CUDA
-    # tensors too): under gloo the blocks go through the host
-    if dist.get_backend(group) == "gloo":
-        y = y.cpu()
-    y = y.contiguous()
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y, group=group)
-    return torch.cat(parts, dim=d).to(x.device, x.dtype)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(x, d, group)
+    return all_gather(x, d, group)
 
 
 def gather_state(mesh, tree, spec=None, axis: str = RAY_AXIS):

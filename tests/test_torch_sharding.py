@@ -28,6 +28,7 @@ from msgwam_tpu.parallel import (ensemble_simulate as jax_ensemble,
                                  sharded_simulate as jax_sharded,
                                  sharded_step_fn as jax_step_fn,
                                  stack_ensemble as jax_stack)
+from msgwam_tpu_torch import _build
 from msgwam_tpu_torch.ops import collective, rhs_cuda_windowed
 from msgwam_tpu_torch.parallel import (P, ensemble_simulate, gather_state,
                                        initialize_distributed, make_mesh,
@@ -499,36 +500,56 @@ def test_refusals(world2, world_of_one, jax_inputs):
 
 
 def test_sharded_runs_are_forward_only(world_of_one, jax_inputs):
-    """An input that needs a gradient raises, naming the unsharded route:
-    on the composable RHS, the K2 route and K4."""
+    """Only the K1 and K6 routes stay forward only, sharded or not: the
+    calls that refused a gradient before now give one, in a world of 1,
+    bitwise the unsharded call's (the composable ``simulate`` in float64,
+    the K2-route ``rhs``, the sharded K4 step through its flux tail, whose
+    backward reruns the plain step with its all-reduces), f's sum over one
+    rank skipped; ``checked`` skips the per-call checks with grad mode left
+    on; the sharded K1 route refuses a gradient, as the unsharded one
+    does."""
     mesh = make_mesh()
-    cfg, bg, state, statics = _port_ref64(jax_inputs)
-    dens = state.rays.dens.clone().requires_grad_(True)
-    state = state._replace(rays=state.rays._replace(dens=dens))
     group = mesh.get_group("rays")
-    run = mtt.RunConfig(dt=120.0, n_steps=1, save_every=1)
-    with pytest.raises(NotImplementedError, match="unsharded route"):
-        mtt.simulate(state, statics, bg, cfg, run, axis_name=group)
+
+    def grads(fn, state, with_group):
+        dens = state.rays.dens.clone().requires_grad_(True)
+        u = state.mean.u.clone().requires_grad_(True)
+        out = fn(state._replace(rays=state.rays._replace(dens=dens),
+                                mean=state.mean._replace(u=u)),
+                 group if with_group else None)
+        loss = sum((x.double() ** 2).sum()
+                   / (x.detach().double() ** 2).sum().clamp_min(1.0)
+                   for x in _build._tensors(out) if x.requires_grad)
+        return torch.autograd.grad(loss, (dens, u))
+
+    def same(fn, state):
+        collective.ALL_REDUCES = collective.BACKWARD_ALL_REDUCES = 0
+        got = grads(fn, state, True)
+        assert collective.ALL_REDUCES > 0 == collective.BACKWARD_ALL_REDUCES
+        for w, g in zip(grads(fn, state, False), got):
+            assert torch.isfinite(g).all() and g.abs().max() > 0
+            assert torch.equal(w, g)
+
+    cfg, bg, state, statics = _port_ref64(jax_inputs)
+    run = mtt.RunConfig(dt=120.0, n_steps=2, save_every=2)
+    same(lambda s, g: mtt.simulate(s, statics, bg, cfg, run, axis_name=g)[0],
+         state)
     cfg32, bg32, s32, st32 = (_cfg(jax_inputs["k"][0]),
                               *map(_port, jax_inputs["k"][1:]))
-    s32 = s32._replace(rays=s32.rays._replace(
-        dens=s32.rays.dens.clone().requires_grad_(True)))
-    with pytest.raises(NotImplementedError, match="unsharded route"):
-        mtt.rhs(120.0, s32, st32, bg32, cfg32.replace(rhs_backend="pallas",
-                                                      window_cells=0), group)
-    with pytest.raises(NotImplementedError, match="unsharded route"):
-        rhs_cuda_windowed.rk3_step_fused_windowed(
-            120.0, s32, st32, bg32, cfg32.replace(rhs_backend="pallas",
-                                                  window_cells=16), group)
-    # without a gradient the same calls run
-    with torch.no_grad():
-        mtt.simulate(state, statics, bg, cfg, run, axis_name=group)
-    # a whole run checks once at its entry: inside it no gradient is
-    # recorded, and the calls it makes skip the check
+    k2 = cfg32.replace(rhs_backend="pallas", window_cells=0)
+    same(lambda s, g: mtt.rhs(120.0, s, st32, bg32, k2, g), s32)
+    k4 = cfg32.replace(rhs_backend="pallas", window_cells=16)
+    same(lambda s, g: rhs_cuda_windowed.rk3_step_fused_windowed(
+        120.0, s, st32, bg32, k4, g), s32)
+    # a whole run checks its group once at its entry; grad mode stays on
     with collective.checked(group):
-        assert not torch.is_grad_enabled()
-        collective.forward_only("rhs", group, dens)
-    assert torch.is_grad_enabled()
+        assert torch.is_grad_enabled()
+        collective.check_group("rays")
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        collective.check_group("rays")
+    k1 = cfg32.replace(rhs_backend="xla", projection_backend="pallas")
+    with pytest.raises(NotImplementedError, match="forward only"):
+        grads(lambda s, g: mtt.rhs(120.0, s, st32, bg32, k1, g), s32, True)
 
 
 def test_gather_state_and_the_flux_tail_twin(world_of_one, jax_inputs):
