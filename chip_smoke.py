@@ -166,6 +166,25 @@ use), then, in order:
    ``dryrun_multichip(2, device="cuda")`` (two gloo ranks on the card, one
    K6 launch each, each rank's member within 1e-4 of K6's twin) with both
    OK lines;
+18. (before 17) the benchmark as a user runs it,
+   ``msgwam_tpu_torch.bench`` (``python -m msgwam_tpu_torch bench``), each
+   row with every launch count at 0 just before it and exactly the launches
+   its route needs (a warm-up and three timed runs), its value rays x steps
+   over its best time, and the card's name and power limit as
+   ``nvidia-smi``'s: (a) the bare command in-process, 1e5 rays x 8000
+   steps in one K5 launch a run and the 1e6 x 1000 extra (no
+   ``extra_error``), then the 1e5 row with ``--fallback``; (b) ``bench
+   --backend pallasw`` at 1e5 x 72 and ``bench --help`` in fresh
+   processes; (c) ``--all`` at 1e5 x 72: K5 on mega, 3 K2 launches a step
+   on pallas, 3 K4 on pallasw, none on mxu, mxu+compensated and xla; (d)
+   ``--matrix`` (15 rows, 1e5 to 5e7 rays: K5 far past its on-chip
+   capacity, the sorted rows on K6) with no ``error`` row and its artifact
+   equal to the printed rows; (e) ``--grad`` at 1e5 x 100 with remat
+   ``full`` on mxu (no kernel) and pallasw (K4 forwards only), finite and
+   nonzero; (f) ``--sharded`` at 1e5 as the NCCL world of 1: K4 in its
+   flux tail, three all-reduces a step; (g) ``--save-every 72 --steps
+   720`` against one 720-step launch, in turns: Path B's host work a
+   launch, and whether the two final states are bitwise equal;
 17. one K4 step profiled in a fresh process: the fallback of a window that
    lost records (below), exercised on every run, last.
 
@@ -179,7 +198,9 @@ Every kernel's entry in the summary line carries its bound, the larger of
 its bytes over the H100's memory rate and its operations over its f32 rate
 (``bound``; operations counted from ``csrc/ray_physics.cuh``, the deposit's
 by the cells this run's rays cover), and the command-line route that
-reaches it (``cli``, with its launches in [14], ``cli_launches``).
+reaches it (``cli``, with its launches in [14], ``cli_launches``) and the
+bench's (``bench``, with its launches in [18], ``bench_launches``; null
+where the bench does not reach the kernel).
 
 Any failed check raises and the exit code is nonzero.  Without a CUDA
 device the script fails at once.  Its second-to-last lines are a JSON
@@ -190,6 +211,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import logging
@@ -205,7 +227,7 @@ import torch
 import torch.distributed as dist
 
 import msgwam_tpu_torch as mtt
-from msgwam_tpu_torch import _build, cli
+from msgwam_tpu_torch import _build, bench, cli
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
 from msgwam_tpu_torch.ops.dispersion import cg_r
 from msgwam_tpu_torch.ops import (collective, projection_cuda, ray_physics,
@@ -2796,6 +2818,295 @@ def phase_examples(device, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# [18] the bench entry point, as a user runs it
+# ---------------------------------------------------------------------------
+
+BENCH_ALL_STEPS = 72       # --all and the subcommand at 1e5
+BENCH_MATRIX_STEPS = 800   # --matrix --steps: the rows from 1e6 up take 100
+BENCH_GRAD_STEPS = 100     # --grad at 1e5, remat full
+BENCH_SAVE, BENCH_SAVE_STEPS = 72, 720   # the --save-every pair
+BENCH_TIMEOUT_S = 300      # each bench subprocess's own limit
+
+
+class BenchRows:
+    """While open, wraps ``bench._run`` (every row of ``run_one``) and
+    ``bench._best_of``: each row's arguments, its launches with every
+    count at 0 just before it, its all-reduces, its wall, the best time
+    its value was computed from and, for rows of at most ``keep`` rays,
+    its final state."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+        self.rows = []
+
+    def __enter__(self):
+        self._run, self._best_of = bench._run, bench._best_of
+        sig = inspect.signature(self._run)
+        best = []
+
+        def run(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            args = {k: v for k, v in args.arguments.items() if k != "device"}
+            best.clear()
+            reset_launches()
+            collective_counts()
+            t0 = time.perf_counter()
+            rec = {"args": args}
+            self.rows.append(rec)
+            try:
+                row, out = self._run(*a, **kw)
+            finally:
+                rec.update(wall_s=time.perf_counter() - t0,
+                           launches=launches(),
+                           reduces=collective_counts()[0], best_s=list(best))
+            rec["row"] = row
+            if args["n_ray"] <= self.keep:
+                rec["final"] = out[0]
+            return row, out
+
+        def best_of(fn, device, reps=bench.REPS):
+            b, out = self._best_of(fn, device, reps)
+            best.append(b)
+            return b, out
+
+        bench._run, bench._best_of = run, best_of
+        return self
+
+    def __exit__(self, *exc):
+        bench._run, bench._best_of = self._run, self._best_of
+
+
+def bench_want(args: dict) -> dict:
+    """The launches of one bench row: a warm-up and ``bench.REPS`` timed
+    runs, each one launch a kernel launch window (K5, or K6 with the sort)
+    or three a step (K2, K4; under sharding K4 in its flux tail)."""
+    runs = 1 + bench.REPS
+    steps, backend = args["n_steps"], args["backend"]
+    if args["sharded"]:
+        return {"K4": runs * 3 * steps, "K4_flux": runs * 3 * steps}
+    if backend == "mega":
+        kernel = "K6" if args["launch_sort"] == "on" else "K5"
+        return {kernel: runs * steps // (args["save_every"] or steps)}
+    return {"pallas": {"K2": runs * 3 * steps},
+            "pallasw": {"K4": runs * 3 * steps}}.get(backend, {})
+
+
+def bench_check(rec: dict, what: str, smi: str) -> dict:
+    """A row of [18]: its launches as :func:`bench_want`'s, its value from
+    its best time, the card's name and power limit; returns the row with
+    its launches, wall and best time beside it."""
+    args, row = rec["args"], rec["row"]
+    want = bench_want(args)
+    want = {k: want.get(k, 0) for k in rec["launches"]}
+    check(rec["launches"] == want,
+          f"[18] {what}: launches {rec['launches']}, expected {want}")
+    check(len(rec["best_s"]) == 1, f"[18] {what}: {len(rec['best_s'])} timings")
+    best = rec["best_s"][0]
+    check(row["value"] == round(args["n_ray"] * args["n_steps"] / best, 1),
+          f"[18] {what}: value {row['value']} is not rays x steps / best "
+          f"({args['n_ray']} x {args['n_steps']} / {best})")
+    check(f"{row['card']}, {row['power_limit']}" == smi,
+          f"[18] {what}: card {row['card']!r}, {row['power_limit']!r}, "
+          f"nvidia-smi {smi!r}")
+    if args["backend"] == "mega" and not args["sharded"]:
+        plan = step_cuda.resident_plan(args["n_ray"])
+        row = {**row, "on_chip_share": plan.on_chip_share}
+    return {**row, "launches": {k: v for k, v in rec["launches"].items() if v},
+            "wall_s": rec["wall_s"], "best_s": best, "all_reduces": rec["reduces"]}
+
+
+def bench_log(what: str, r: dict, smi: str) -> None:
+    extra = {k: r[k] for k in ("peak_hbm_gb", "fallback_rate_end",
+                               "fallback_rate_end_internal", "full_rate_end",
+                               "compile_s", "on_chip_share") if k in r}
+    log(f"[18] {what}: {r['value']:.6e} ray-steps/s (best {r['best_s']:.6f} s,"
+        f" row {r['wall_s']:.3f} s), launches {r['launches']}, {extra} on {smi}")
+
+
+def bench_cli(argv: list) -> list:
+    """``bench.cli(argv)`` with what it prints kept and parsed: its JSON
+    lines."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        bench.cli(argv)
+    return [json.loads(line) for line in printed.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def bench_module(*args) -> subprocess.CompletedProcess:
+    """``python -m msgwam_tpu_torch bench <args>`` in a fresh process."""
+    return subprocess.run([sys.executable, "-m", "msgwam_tpu_torch", "bench",
+                           *args], cwd=HERE, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+
+
+def phase_bench(device, smi: str) -> dict:
+    """``python -m msgwam_tpu_torch bench`` as a user runs it: the bare
+    command, the subcommand in a fresh process, --all, --matrix, --grad,
+    --sharded and the --save-every pair, every row's launches counted."""
+    del device
+    t_phase = time.perf_counter()
+    res = {}
+    n = bench.N_RAY
+
+    # (a) the bare command in-process: 1e5 x 8000 in one K5 launch a run,
+    # and the 1e6 x 1000 extra; then the 1e5 row with --fallback
+    with BenchRows() as rec:
+        printed = bench_cli([])
+        check(len(printed) == 1 and len(rec.rows) == 2,
+              f"[18] bare: {len(printed)} lines, {len(rec.rows)} rows")
+        line = printed[0]
+        check("extra_error" not in line, f"[18] bare: {line.get('extra_error')}")
+        check({"metric", "value", "unit", "vs_baseline", "card", "power_limit",
+               "extra"} <= set(line), f"[18] bare: keys {sorted(line)}")
+        bare = bench_check(rec.rows[0], "bare, the metric of record", smi)
+        extra = bench_check(rec.rows[1], "bare, the 1e6 extra", smi)
+        check(line["value"] == bare["value"]
+              and line["extra"][0]["value"] == extra["value"],
+              "[18] bare: the printed line is not the rows'")
+        bench_cli(["--fallback"])
+        fb = bench_check(rec.rows[2], "--fallback", smi)
+    for what, r in (("bare, metric of record", bare),
+                    ("bare, the extra 1e6 x 1000", extra),
+                    ("--fallback 1e5 x 8000", fb)):
+        bench_log(what, r, smi)
+    res["bare"] = {"line": line, "metric_of_record": bare, "extra": extra,
+                   "fallback": fb}
+
+    # (b) the subcommand in a fresh process, and its --help
+    t0 = time.perf_counter()
+    sub = bench_module("--n-ray", str(n), "--steps", str(BENCH_ALL_STEPS),
+                       "--backend", "pallasw")
+    sub_s = time.perf_counter() - t0
+    check(sub.returncode == 0, f"[18] bench subprocess: rc {sub.returncode}: "
+                               f"{sub.stderr[-2000:]}")
+    sub_row = json.loads(sub.stdout.strip().splitlines()[-1])
+    check("pallasw" in sub_row["metric"]
+          and f"{sub_row['card']}, {sub_row['power_limit']}" == smi,
+          f"[18] bench subprocess: {sub_row}")
+    helped = bench_module("--help")
+    check(helped.returncode == 0 and "--matrix" in helped.stdout,
+          f"[18] bench --help: rc {helped.returncode}")
+    log(f"[18] python -m msgwam_tpu_torch bench --backend pallasw, {n} x "
+        f"{BENCH_ALL_STEPS}: {sub_row['value']:.6e} ray-steps/s, the process "
+        f"{sub_s:.1f} s; --help rc 0")
+    res["subprocess"] = {"row": sub_row, "process_s": sub_s}
+
+    # (c) --all at 1e5
+    with BenchRows() as rec:
+        printed = bench_cli(["--all", "--n-ray", str(n),
+                             "--steps", str(BENCH_ALL_STEPS)])
+    check(len(printed) == len(rec.rows) == 6, "[18] --all: not six rows")
+    res["all"] = {}
+    for line, r in zip(printed, rec.rows):
+        a = r["args"]
+        name = a["backend"] + ("+" + a["accum"] if a["accum"] != "native" else "")
+        res["all"][name] = bench_check(r, f"--all {name}", smi)
+        check(line["value"] == r["row"]["value"], f"[18] --all {name}: printed")
+        bench_log(f"--all {name}, {n} x {BENCH_ALL_STEPS}", res["all"][name], smi)
+
+    # (d) --matrix: every row, none an error, the artifact the rows
+    with BenchRows() as rec, tempfile.TemporaryDirectory() as tmp:
+        printed = bench_cli(["--matrix", "--steps", str(BENCH_MATRIX_STEPS),
+                             "--out", tmp])
+        written = json.loads((Path(tmp) / "bench_matrix.json").read_text())
+    torch.cuda.empty_cache()
+    errors = [r for r in printed if "error" in r]
+    check(not errors, f"[18] --matrix: error rows {errors}")
+    check(written == printed and len(rec.rows) == len(printed) == 15,
+          "[18] --matrix: the artifact is not the printed rows")
+    res["matrix"] = []
+    for r in rec.rows:
+        a = r["args"]
+        what = (f"--matrix {a['backend']} {a['n_ray']:,} x {a['n_steps']}"
+                + (f" save {a['save_every']} sort {a['launch_sort']}"
+                   if a["save_every"] else "") + (" hprop" if a["hprop"] else ""))
+        row = bench_check(r, what, smi)
+        res["matrix"].append(row)
+        bench_log(what, row, smi)
+
+    # (e) --grad at 1e5, remat full, on the plain path and through K4
+    res["grad"] = {}
+    for backend in ("mxu", "pallasw"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (row,) = bench_cli(["--grad", "--n-ray", str(n), "--steps",
+                            str(BENCH_GRAD_STEPS), "--grad-remat", "full",
+                            "--backend", backend])
+        wall = time.perf_counter() - t0
+        got = launches()
+        check(row["gradient_finite"] and row["grad_max_abs"] > 0.0,
+              f"[18] --grad {backend}: {row}")
+        if backend == "pallasw":
+            # three a step of every forward: the timed ones, and in each
+            # gradient the first pass and remat's replays
+            check(got["K4"] > 0 and got["K4"] % 3 == 0
+                  and port_launches() == got["K4"] and not got["K4_flux"],
+                  f"[18] --grad pallasw: launches {got}")
+        else:
+            check(port_launches() == 0, f"[18] --grad mxu: launches {got}")
+        res["grad"][backend] = {**row, "launches": {k: v for k, v in got.items()
+                                                    if v}, "wall_s": wall}
+        log(f"[18] --grad --backend {backend} {n} x {BENCH_GRAD_STEPS}, remat "
+            f"full: forward {row['forward_s']} s, value+grad {row['grad_s']} s,"
+            f" ratio {row['bwd_fwd_ratio']}, |grad| max {row['grad_max_abs']:.6e},"
+            f" peak {row.get('peak_hbm_gb')} GiB, launches "
+            f"{res['grad'][backend]['launches']} on {smi}")
+
+    # (f) --sharded as an NCCL world of 1 in this process: K4 in its flux
+    # tail; the world taken down after the row if it was made for it
+    created = not dist.is_initialized()
+    initialize_distributed()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "[18] --sharded: not an NCCL world of 1")
+        with BenchRows() as rec:
+            (line,) = bench_cli(["--sharded", "--n-ray", str(n), "--steps",
+                                 str(BENCH_ALL_STEPS)])
+    finally:
+        if created:
+            dist.destroy_process_group()
+    sharded = bench_check(rec.rows[0], "--sharded", smi)
+    want_reduces = (1 + bench.REPS) * 3 * BENCH_ALL_STEPS
+    check("pallasw+sharded" in line["metric"]
+          and sharded["all_reduces"] == want_reduces,
+          f"[18] --sharded: {line['metric']}, all-reduces "
+          f"{sharded['all_reduces']} (expected {want_reduces})")
+    bench_log(f"--sharded {n} x {BENCH_ALL_STEPS}", sharded, smi)
+    res["sharded"] = sharded
+
+    # (g) --save-every 72 --steps 720 against one 720-step launch, in
+    # turns: Path B's host work a launch
+    order = (BENCH_SAVE, 0, 0, BENCH_SAVE)
+    with BenchRows(keep=n) as rec:
+        for save in order:
+            flags = ["--n-ray", str(n), "--steps", str(BENCH_SAVE_STEPS)]
+            bench_cli(flags + (["--save-every", str(save)] if save else []))
+    pair = {}
+    for save, r in zip(order, rec.rows):
+        row = bench_check(r, f"--save-every {save}", smi)
+        pair.setdefault(save, []).append(row["best_s"])
+    launches_per_run = BENCH_SAVE_STEPS // BENCH_SAVE
+    host_ms = (min(pair[BENCH_SAVE]) - min(pair[0])) / (launches_per_run - 1) * 1e3
+    ten, one = rec.rows[0]["final"], rec.rows[1]["final"]
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip((*ten.rays, *ten.mean), (*one.rays, *one.mean)))
+    res["save_every"] = {"best_s": {str(k): v for k, v in pair.items()},
+                         "host_ms_per_launch": host_ms,
+                         "ten_launches_bitwise_one": bitwise}
+    log(f"[18] --save-every {BENCH_SAVE} --steps {BENCH_SAVE_STEPS} "
+        f"({launches_per_run} K5 launches) against one launch, {n} rays, in "
+        f"turns: best {pair[BENCH_SAVE]} s against {pair[0]} s: Path B's host "
+        f"work {host_ms:.4f} ms a launch on {smi}; the final states bitwise "
+        f"equal: {bitwise}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"[18] the phase took {res['wall_s']:.1f} s")
+    return res
+
+
 def phase_fresh_window(device) -> dict:
     """[17] The fallback of a window that lost records, exercised on every
     run: one K4 step at 1e5 rays profiled in a fresh process.  It runs
@@ -2865,6 +3176,7 @@ def main() -> int:
     driver = phase_driver(smi)
     shard = phase_sharding(device, smi)
     examples = phase_examples(device, smi)
+    bench_res = phase_bench(device, smi)
     fresh = phase_fresh_window(device)
     cli_launches = {k: v for r in driver["routes"].values()
                     for k, v in r["launches"].items() if v}
@@ -2879,6 +3191,7 @@ def main() -> int:
          "launches": route["launches"], "redesigned": 6,
          "cli": '"projection_backend": "pallas" in a config file',
          "cli_launches": cli_launches["K1"],
+         "bench": None, "bench_launches": None,
          "max_abs_err": max(r["max_abs_err"] for r in (*k1.values(),
                                                        *route["k1"].values())),
          **timing(k1[f"random_{N_MAIN}"])},
@@ -2887,6 +3200,8 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/rhs_pallas.py:358",
          "launches": k2_day["launches"], "redesigned": 5,
          "cli": "--kernels pallas", "cli_launches": cli_launches["K2"],
+         "bench": "python -m msgwam_tpu_torch bench --backend pallas (--all)",
+         "bench_launches": bench_res["all"]["pallas"]["launches"]["K2"],
          "max_abs_err": max(k2[N_MAIN]["max_abs_err"], k2_spread["max_abs_err"],
                             k2_spread_1e6["max_abs_err"]),
          **timing(k2_spread)},
@@ -2896,6 +3211,7 @@ def main() -> int:
          "launches": path_a["k3_launches"], "redesigned": 5,
          "cli": '"kernels": "windowed" with "integrator": "rk4" in a config file',
          "cli_launches": cli_launches["K3"],
+         "bench": None, "bench_launches": None,
          "max_abs_err": max(k3[N_MAIN]["max_abs_err"], k3["mixed"]["max_abs_err"]),
          **timing(k3[N_MAIN])},
         {"name": "K4 stage-fused windowed RHS (rk3_step_fused_windowed)",
@@ -2903,6 +3219,9 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/rhs_pallas_windowed.py:392",
          "launches": path_a["launches"], "redesigned": 5,
          "cli": "--kernels windowed", "cli_launches": cli_launches["K4"],
+         "bench": "python -m msgwam_tpu_torch bench --backend pallasw (--all; "
+                  "--sharded runs its flux tail, --grad its forwards)",
+         "bench_launches": bench_res["all"]["pallasw"]["launches"]["K4"],
          "max_abs_err": max(path_a["max_abs_err"],
                             shard["k4_flux_tail"]["max_abs_err"]),
          **timing(path_a),
@@ -2915,6 +3234,9 @@ def main() -> int:
          "replaces": "msgwam_tpu/ops/step_pallas.py:538",
          "launches": path_b["launches"], "redesigned": 4,
          "cli": "--kernels mega", "cli_launches": cli_launches["K5"],
+         "bench": "python -m msgwam_tpu_torch bench (bare: 1e5 x 8000, one "
+                  "launch a run)",
+         "bench_launches": bench_res["bare"]["metric_of_record"]["launches"]["K5"],
          "example": "python -m msgwam_tpu_torch.examples.megakernel_day",
          "example_launches": examples["megakernel_day"]["launches"],
          "max_abs_err": path_b["max_abs_err"], **timing(path_b)},
@@ -2924,6 +3246,10 @@ def main() -> int:
          "launches": path_d["launches"], "redesigned": 4,
          "cli": "--kernels mega with the lifecycle or a tidal background "
                 "(examples/config4.json)", "cli_launches": cli_launches["K6"],
+         "bench": "python -m msgwam_tpu_torch bench --matrix (the "
+                  "--launch-sort on rows)",
+         "bench_launches": sum(r["launches"].get("K6", 0)
+                               for r in bench_res["matrix"]),
          "example": "python -m msgwam_tpu_torch.dryrun --n-devices 2 "
                     "(one member a rank)",
          "example_launches": examples["dryrun"]["launches_per_rank"][0]["K6"],
@@ -2932,7 +3258,7 @@ def main() -> int:
          "route": "cuda", "source": "msgwam_tpu_torch/csrc/step_resident.cu",
          "replaces": "msgwam_tpu/ops/step_pallas_stream.py:817",
          "launches": path_e["launches"], "redesigned": 4,
-         "cli": None, "cli_launches": 0,
+         "cli": None, "cli_launches": 0, "bench": None, "bench_launches": None,
          "example": "python -m msgwam_tpu_torch.examples.config_ladder",
          "example_launches": examples["config_ladder"]["config_5_launches"],
          "max_abs_err": path_e["max_abs_err"], **timing(path_e)},
@@ -2945,7 +3271,7 @@ def main() -> int:
         "k2_day": k2_day, "path_a": path_a, "path_b": path_b,
         "k1_route": route, "path_d": path_d, "launch_sort": sort,
         "path_e": path_e, "adjoint": adjoint, "driver": driver,
-        "sharding": shard, "examples": examples,
+        "sharding": shard, "examples": examples, "bench": bench_res,
         "profiler_windows": WINDOWS, "fresh_process_window": fresh,
         "build_s": build_s,
     }

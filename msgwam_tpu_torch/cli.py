@@ -41,7 +41,14 @@ evaluation (:mod:`msgwam_tpu_torch.parallel.sharding`): run it under
 NCCL), or alone as a world of 1.  Every rank gathers the history and the
 final state; rank 0 alone writes the files and the plot.
 
-There is no ``bench`` subcommand yet (ROADMAP queue 1, item 1).
+``bench`` runs the port's benchmark (:mod:`msgwam_tpu_torch.bench`, the
+counterpart of the JAX package's ``bench.py``); every flag after it is
+forwarded there, ``--help`` included::
+
+    python -m msgwam_tpu_torch bench                      # 1e5 x 8000 on K5, 1e6 extra
+    python -m msgwam_tpu_torch bench --all --steps 72     # one row per backend
+    python -m msgwam_tpu_torch bench --matrix --out results/   # results/bench_matrix.json
+    python -m msgwam_tpu_torch bench --n-ray 512 --steps 5 --backend mxu --device cpu
 """
 
 from __future__ import annotations
@@ -492,7 +499,19 @@ def main(argv=None):
                       help="torch device to run on (default: the card; "
                            "'cpu' runs the plain paths and the kernels' "
                            "twins)")
+    # add_help=False: ``bench --help`` shows the bench's own flags, so
+    # --help rides along in the forwarded extras
+    sub.add_parser(
+        "bench", add_help=False,
+        help="run the benchmark; every flag is forwarded to "
+             "msgwam_tpu_torch.bench (--backend/--n-ray/--steps/--matrix/"
+             "--device/--help/...)")
     args, extra = ap.parse_known_args(argv)
+    if args.cmd == "bench":
+        from . import bench
+
+        bench.cli(extra)
+        return
     if extra:
         # error against the run subparser so the message carries its usage
         runp.error(f"unrecognized arguments: {' '.join(extra)}")
