@@ -236,6 +236,7 @@ from msgwam_tpu_torch.ops import (collective, projection_cuda, ray_physics,
 from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
                                        make_mesh, shard_state, sharded_simulate,
                                        stack_ensemble)
+from msgwam_tpu_torch.parallel.distributed import world
 from msgwam_tpu_torch.state import tree_map
 from msgwam_tpu_torch.utils import history_io
 
@@ -261,6 +262,7 @@ N_ABOVE = 2_000_000    # a K5 run past the on-chip capacity (1,081,344 rays)
 # K1, K2-K4, K5-K7.  A profiled window holds as many as the launch
 # counters say were launched in it, or CUPTI lost records (``measure``).
 PORT_KERNELS = ("project_kernel", "stage_kernel", "step_resident_kernel")
+LEAD_KERNELS = 64           # sleep kernels before a window's call (``profiled``)
 REMEASURE_TIMEOUT_S = 300   # a fresh process that profiles one window again
 WINDOWS = []                # every profiled window (``measure``)
 MESHES = {}                 # this process's NCCL world of 1 (``rays_mesh``)
@@ -709,14 +711,19 @@ def timed_resident(state, statics, bg, cfg, n_steps: int, save_every: int):
 
 def profiled(fn):
     """``(profile, wall seconds)`` of one call of ``fn`` under
-    ``torch.profiler``, bracketed by two short sleep kernels: the profiler
-    can leave a window's first or last kernel unrecorded, and
-    ``device_events`` leaves the sleeps out."""
+    ``torch.profiler``, after ``LEAD_KERNELS`` short sleep kernels and
+    before one more (``device_events`` leaves the sleeps out).  CUPTI drops
+    the first records of a profiler session: none in a fresh process, then
+    one or two a session once another process has made a CUDA context on
+    the card (``tools/torch_cupti_windows.py``, ``PERF.md`` §6).  A lead of
+    one kernel, however long, left the rest to the window's own kernels;
+    the drops fall on the lead's kernels instead."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+        for _ in range(LEAD_KERNELS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -727,17 +734,19 @@ def profiled(fn):
     return prof, wall
 
 
-def device_events(prof) -> list:
-    """The device events of a ``profiled`` window, without its sleeps."""
+def device_events(prof, sleeps: bool = False) -> list:
+    """The device events of a ``profiled`` window, without its sleeps (or
+    only they, with ``sleeps``)."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and "spin_kernel" not in e.name]
+            and ("spin_kernel" in e.name) == sleeps]
 
 
 def window_stats(fn, args, n_steps: int) -> dict:
     """One profiled call of ``fn(*args)``: the device kernels by name, the
     port's kernels it launched (its launch counters) and the records of
-    them (``PORT_KERNELS`` by name), and per step the wall, the device
+    them (``PORT_KERNELS`` by name), the records of its sleep kernels that
+    CUPTI dropped (``sleeps_lost``), and per step the wall, the device
     operations, the device busy time and the idle share (``None`` where
     the profiler records no device activity)."""
     before = port_launches()
@@ -751,6 +760,7 @@ def window_stats(fn, args, n_steps: int) -> dict:
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     return {"kernels": kernels, "launched": launched,
             "device_free_mib": free / 2**20,
+            "sleeps_lost": LEAD_KERNELS + 1 - len(device_events(prof, True)),
             "recorded": sum(v for k, v in kernels.items()
                             if any(p in k for p in PORT_KERNELS)),
             "wall_ms_per_step": wall * 1e3 / n_steps,
@@ -761,12 +771,10 @@ def window_stats(fn, args, n_steps: int) -> dict:
 
 def measure(label: str, fn, args: tuple, n_steps: int = 1) -> dict:
     """``window_stats`` of one call of ``fn(*args)``, held to the port's
-    launch counters.  CUPTI loses device records in this long process:
-    while [6] profiled a window in a fresh process, the same five windows
-    did so run after run (a K1 call's only kernel, up to 10 of the 30 of
-    [15]'s 10 steps); with that process last ([17]) four runs of five lost
-    none (``PERF.md`` §6-7).  A window that
-    records fewer of the port's kernels than the counters say it launched
+    launch counters.  CUPTI drops the first records of a session, which
+    ``profiled``'s lead of sleep kernels takes (``sleeps_lost`` counts
+    them), and rarely a longer run of records (``PERF.md`` §6-7).  A window
+    that records fewer of the port's kernels than the counters say it launched
     is measured again in a fresh process that runs only that window
     (:func:`remeasure`), whose window must record every one.  A lost
     record can only lower a count, so the checks then read, for each
@@ -777,13 +785,14 @@ def measure(label: str, fn, args: tuple, n_steps: int = 1) -> dict:
     any re-measurement, is kept in ``WINDOWS`` for the summary."""
     res = window_stats(fn, args, n_steps)
     entry = {"label": label, "launched": res["launched"],
-             "recorded": res["recorded"],
+             "recorded": res["recorded"], "sleeps_lost": res["sleeps_lost"],
              "device_free_mib": res["device_free_mib"]}
     if res["recorded"] < res["launched"]:
         log(f"[profiler] {label}: the window recorded {res['recorded']} of "
             f"the {res['launched']} kernels the port launched in it "
             f"({res['device_free_mib']:.0f} MiB of the card free; kernels "
-            f"{res['kernels']}); measuring it again in a fresh process")
+            f"{res['kernels']}; sleeps lost {res['sleeps_lost']}); "
+            f"measuring it again in a fresh process")
         first = res["kernels"]
         res = remeasure(fn, args, n_steps)
         entry["remeasured"] = {k: res[k] for k in
@@ -2171,12 +2180,17 @@ def k4_flux_tail(state, statics, bg, cfg) -> dict:
 
 
 def gloo_worker(rank: int, init: str, out: str) -> None:
-    """One of [15]'s two gloo ranks on the one card: Path A at 1e6 rays
-    (its 5e5) for 5 steps, 20 timed steps, the all-reduce's time, and
-    configs[4]'s ensemble on the mega mesh route; results to
-    ``out/gloo<rank>.npz``."""
-    device = initialize_distributed(init_method=init, world_size=2, rank=rank,
-                                    backend="gloo", device="cuda:0")
+    """One of [15]'s two gloo ranks on the one card (:func:`gloo_rank`),
+    in its world of two."""
+    with world(init_method=init, world_size=2, rank=rank, backend="gloo",
+               device="cuda:0") as device:
+        gloo_rank(rank, device, out)
+
+
+def gloo_rank(rank: int, device, out: str) -> None:
+    """Path A at 1e6 rays (this rank's 5e5) for 5 steps, 20 timed steps,
+    the all-reduce's time, and configs[4]'s ensemble on the mega mesh
+    route; results to ``out/gloo<rank>.npz``."""
     torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2228,7 +2242,6 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
              **{f"ens_{f}": host(getattr(fe.rays, f)[ends])
                 for f in ("dens", "r", "m")},
              ens_u=host(fe.mean.u[ends]), ens_hist_u=host(mhe.u[ends]))
-    dist.destroy_process_group()
 
 
 def phase_gloo(five, want_grad: dict, smi: str) -> dict:
@@ -2339,12 +2352,21 @@ def phase_gloo(five, want_grad: dict, smi: str) -> dict:
 
 
 def phase_sharding(device, smi: str) -> dict:
+    """Ray sharding (:func:`sharding_checks`) in an NCCL world of 1 made
+    for the phase and ended after it, its cached mesh with it."""
+    with world():
+        try:
+            return sharding_checks(device, smi)
+        finally:
+            MESHES.clear()
+
+
+def sharding_checks(device, smi: str) -> dict:
     """Ray sharding: NCCL as a world of 1, gloo with two ranks on the one
     card, and ``--shard`` through the driver."""
     mode = compute_mode()
     log(f"[15] compute mode: {mode}")
     check(mode == "Default", f"[15] needs the Default compute mode, not {mode}")
-    initialize_distributed()
     check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
           "[15](a): not an NCCL world of 1")
     mesh = rays_mesh()
@@ -2483,7 +2505,6 @@ def phase_sharding(device, smi: str) -> dict:
         f"(world of 1): launches {sh['launches']}, all-reduces {cli_reduces}; "
         f"step 10 vs the unsharded run {fmt(cli_errs)}; walls "
         f"{sh['wall_s']:.3f} s and {un['wall_s']:.3f} s")
-    dist.destroy_process_group()
     return {"compute_mode": mode, "errs_1": e1, "errs_5": e5, "bitwise": bitwise,
             "launches": counts, "all_reduces": reduces,
             "wall_ms_per_step": wall_s * 1e3 / SHARD_STEPS,
@@ -3058,17 +3079,12 @@ def phase_bench(device, smi: str) -> dict:
 
     # (f) --sharded as an NCCL world of 1 in this process: K4 in its flux
     # tail; the world taken down after the row if it was made for it
-    created = not dist.is_initialized()
-    initialize_distributed()
-    try:
+    with world():
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               "[18] --sharded: not an NCCL world of 1")
         with BenchRows() as rec:
             (line,) = bench_cli(["--sharded", "--n-ray", str(n), "--steps",
                                  str(BENCH_ALL_STEPS)])
-    finally:
-        if created:
-            dist.destroy_process_group()
     sharded = bench_check(rec.rows[0], "--sharded", smi)
     want_reduces = (1 + bench.REPS) * 3 * BENCH_ALL_STEPS
     check("pallasw+sharded" in line["metric"]

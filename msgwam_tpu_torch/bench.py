@@ -197,16 +197,11 @@ def _run(n_ray, n_steps, backend="mega", accum="native", sharded=False,
         return _timed(n_ray, n_steps, backend, accum, False, fallback, w2,
                       w1, save_every, launch_sort, hprop, sat,
                       default_device(device))
-    from .parallel import initialize_distributed
+    from .parallel.distributed import world
 
-    created = not dist.is_initialized()
-    device = initialize_distributed(device=device)
-    try:
+    with world(device=device) as device:
         return _timed(n_ray, n_steps, backend, accum, True, fallback, w2, w1,
                       save_every, launch_sort, hprop, sat, device)
-    finally:
-        if created:
-            dist.destroy_process_group()
 
 
 def _timed(n_ray, n_steps, backend, accum, sharded, fallback, w2, w1,

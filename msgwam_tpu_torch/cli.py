@@ -207,16 +207,11 @@ def run_experiment(
         return _run_experiment(spec, out_dir, make_plot, log_every,
                                resume_from, stream_history, False,
                                default_device(device))
-    from .parallel import initialize_distributed
+    from .parallel.distributed import world
 
-    created = not dist.is_initialized()
-    device = initialize_distributed(device=device)
-    try:
+    with world(device=device) as device:
         return _run_experiment(spec, out_dir, make_plot, log_every,
                                resume_from, stream_history, True, device)
-    finally:
-        if created:
-            dist.destroy_process_group()
 
 
 def _run_experiment(spec, out_dir, make_plot, log_every, resume_from,

@@ -109,44 +109,46 @@ def _rank(rank: int, world: int, init: str, device: str, out_dir: str) -> None:
     """One rank of :func:`dryrun_multichip`: its block of the sharded step
     and its member of the second leg, saved to ``out_dir/rank<rank>.pt``."""
     from msgwam_tpu_torch.ops import step_cuda_stream
-    from msgwam_tpu_torch.parallel import (ensemble_simulate, global_mesh,
-                                           initialize_distributed)
+    from msgwam_tpu_torch.parallel import ensemble_simulate, global_mesh
+    from msgwam_tpu_torch.parallel.distributed import world as world_of
 
     torch.set_num_threads(1)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    initialize_distributed(init_method=init, world_size=world, rank=rank,
-                           backend="gloo", device=dev)
-    e_size, r_size = mesh_shape(world)
-    mesh = global_mesh((e_size, r_size), ("ensemble", "rays"))
-    i_e, i_r = mesh.get_local_rank("ensemble"), mesh.get_local_rank("rays")
-    cfg, bg, state, statics = setup(PER_SHARD * r_size, ensemble=e_size,
-                                    device=dev)
-    rows = slice(i_r * PER_SHARD, (i_r + 1) * PER_SHARD)
-    member = lambda tree, f: tree_map(f, tree)
-    my_state = mtt.State(member(state.rays, lambda x: x[i_e, rows]),
-                         member(state.mean, lambda x: x[i_e]))
-    my_statics = member(statics, lambda x: x[i_e, rows])
-    new_state, new_statics, _ = mtt.step(
-        DT, my_state, my_statics, bg, cfg, axis_name=mesh.get_group("rays"))
-    if not bool(torch.isfinite(new_state.mean.u).all()):
-        raise FloatingPointError(f"rank {rank}: non-finite wind after a step")
+    with world_of(init_method=init, world_size=world, rank=rank,
+                  backend="gloo", device=dev):
+        e_size, r_size = mesh_shape(world)
+        mesh = global_mesh((e_size, r_size), ("ensemble", "rays"))
+        i_e, i_r = mesh.get_local_rank("ensemble"), mesh.get_local_rank("rays")
+        cfg, bg, state, statics = setup(PER_SHARD * r_size, ensemble=e_size,
+                                        device=dev)
+        rows = slice(i_r * PER_SHARD, (i_r + 1) * PER_SHARD)
+        member = lambda tree, f: tree_map(f, tree)
+        my_state = mtt.State(member(state.rays, lambda x: x[i_e, rows]),
+                             member(state.mean, lambda x: x[i_e]))
+        my_statics = member(statics, lambda x: x[i_e, rows])
+        new_state, new_statics, _ = mtt.step(
+            DT, my_state, my_statics, bg, cfg,
+            axis_name=mesh.get_group("rays"))
+        if not bool(torch.isfinite(new_state.mean.u).all()):
+            raise FloatingPointError(
+                f"rank {rank}: non-finite wind after a step")
 
-    # second leg: one member a rank, a whole-run kernel launch each
-    emesh = global_mesh((world,), ("ensemble",))
-    bstates, bstatics = mega_members(cfg, bg, world)
-    run = mtt.RunConfig(dt=DT, n_steps=2, save_every=2)
-    before = dict(step_cuda_stream.LAUNCHES)
-    fin, _, mh = ensemble_simulate(bstates, bstatics, bg, cfg, run,
-                                   mesh=emesh, backend="mega")
-    launches = {k: v - before[k] for k, v in step_cuda_stream.LAUNCHES.items()}
-    torch.save({"member": i_e, "rows": (rows.start, rows.stop),
-                "state": _cpu(new_state), "statics": _cpu(new_statics),
-                "mega_final": _cpu(fin), "mega_mean": _cpu(mh),
-                "launches": launches},
-               os.path.join(out_dir, f"rank{rank}.pt"))
-    torch.distributed.destroy_process_group()
+        # second leg: one member a rank, a whole-run kernel launch each
+        emesh = global_mesh((world,), ("ensemble",))
+        bstates, bstatics = mega_members(cfg, bg, world)
+        run = mtt.RunConfig(dt=DT, n_steps=2, save_every=2)
+        before = dict(step_cuda_stream.LAUNCHES)
+        fin, _, mh = ensemble_simulate(bstates, bstatics, bg, cfg, run,
+                                       mesh=emesh, backend="mega")
+        launches = {k: v - before[k]
+                    for k, v in step_cuda_stream.LAUNCHES.items()}
+        torch.save({"member": i_e, "rows": (rows.start, rows.stop),
+                    "state": _cpu(new_state), "statics": _cpu(new_statics),
+                    "mega_final": _cpu(fin), "mega_mean": _cpu(mh),
+                    "launches": launches},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def _run_ranks(world: int, device: str, timeout_s: float) -> list:

@@ -26,8 +26,11 @@ first, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
+import traceback
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -37,6 +40,7 @@ import torch.distributed as dist
 from ..state import tree_map
 
 _DEVICE: Optional[torch.device] = None
+_MESHES = weakref.WeakSet()     # :func:`global_mesh`'s, for :func:`shutdown`
 
 
 class P:
@@ -134,6 +138,67 @@ def initialize(init_method: Optional[str] = None,
     return device
 
 
+def shutdown(barrier: bool = True) -> None:
+    """End the world of this process, so that no thread of its process
+    groups outlives it: a barrier on the default group (no rank closes its
+    connections while a peer still uses them; ``barrier=False`` on an
+    error, where a peer may never reach it), then the groups of the
+    meshes that :func:`global_mesh` made are let go and every process group
+    is destroyed, the meshes' groups before the default one
+    (``destroy_process_group`` takes them in the reverse order of their
+    creation).  With no other reference left, each group's destructor joins
+    its worker threads here.  A no-op without a process group.
+
+    Why: a gloo worker thread drops its last finished collective (and the
+    tensors it holds, whose Python objects it must release under the
+    interpreter lock) some time after the caller has gone on.  A mesh keeps
+    its groups, and so those threads, alive; if the interpreter is already
+    finalizing when such a thread asks for the lock, Python ends the thread
+    and C++ aborts the process (``terminate called without an active
+    exception``, exit -6), after the rank's work is done.  So every world
+    the port starts ends here (through :func:`world`, or here directly in
+    a rank's own process), and a caller holds no group of a mesh
+    (``mesh.get_group``) past this call.  The JAX package has no
+    counterpart, since JAX shuts its own distributed runtime down, so
+    :mod:`msgwam_tpu_torch.parallel` does not export it: its callers are
+    the port's entry points, scripts and tests."""
+    global _DEVICE
+    if not dist.is_initialized():
+        return
+    if barrier and dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    elif barrier:
+        dist.barrier()
+    for mesh in list(_MESHES):
+        # DeviceMesh holds its dimensions' groups by name in this registry
+        getattr(mesh, "_pg_registry", {}).clear()
+    _MESHES.clear()
+    dist.destroy_process_group()
+    _DEVICE = None
+
+
+@contextlib.contextmanager
+def world(**kwargs):
+    """:func:`initialize` (``kwargs``) for the span of a ``with`` block,
+    which gets this rank's device, ended by :func:`shutdown` if it was made
+    here (a world that existed before is left to its maker): with the
+    barrier after the block, without it when the block raised.  On that
+    path the finished frames of the traceback let their locals go first,
+    so that a group one of them held is destroyed with the rest.  Private
+    to the port's callers, as :func:`shutdown`."""
+    created = not dist.is_initialized()
+    device = initialize(**kwargs)
+    try:
+        yield device
+    except BaseException as e:
+        if created:
+            traceback.clear_frames(e.__traceback__)
+            shutdown(barrier=False)
+        raise
+    if created:
+        shutdown()
+
+
 def local_device() -> torch.device:
     """This rank's device (:func:`initialize`'s; for a process group set
     up elsewhere, the current card under NCCL and the CPU otherwise)."""
@@ -152,8 +217,10 @@ def global_mesh(axes: Sequence[int], names: Sequence[str]):
     hosts."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(local_device().type, tuple(axes),
+    mesh = init_device_mesh(local_device().type, tuple(axes),
                             mesh_dim_names=tuple(names))
+    _MESHES.add(mesh)
+    return mesh
 
 
 def mesh_position(mesh, name: str) -> tuple:

@@ -102,10 +102,13 @@ def sharded_step_fn(mesh, bg: Background, cfg: ModelConfig, dt: float,
                     axis: str = RAY_AXIS) -> Callable:
     """One model step sharded over the ray axis: ``f(state, statics) ->
     (state, statics)`` on this rank's block (:func:`shard_state`'s)."""
-    group = mesh.get_group(axis)
+    mesh.get_group(axis)    # the mesh has the dimension
 
     def f(state, statics):
-        state, statics, _ = step(dt, state, statics, bg, cfg, axis_name=group)
+        # the group looked up a call, so that a kept runner keeps no group
+        # alive past the world's end (distributed.shutdown)
+        state, statics, _ = step(dt, state, statics, bg, cfg,
+                                 axis_name=mesh.get_group(axis))
         return state, statics
 
     return f
@@ -174,13 +177,14 @@ def build_sharded_simulate_fn(mesh, cfg: ModelConfig, run: RunConfig,
         observe_spec = MeanState(P(), P())
     elif observe_spec is None:
         raise ValueError("custom observe requires observe_spec")
-    group = mesh.get_group(axis)
+    mesh.get_group(axis)    # the mesh has the dimension
     device = local_device()
 
     def run_sharded(state, statics, bg, source=None):
+        # the group looked up a call, as in sharded_step_fn
         bg = tree_map(lambda x: x.to(device), bg)
         return simulate(state, statics, bg, cfg, run, observe=observe,
-                        source=source, axis_name=group)
+                        source=source, axis_name=mesh.get_group(axis))
 
     run_sharded.out_specs = (state_spec, statics_spec, observe_spec)
     return run_sharded

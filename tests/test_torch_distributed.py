@@ -30,7 +30,7 @@ import torch
 torch.set_num_threads(1)
 import torch.distributed as dist
 from msgwam_tpu_torch.parallel.distributed import (
-    global_mesh, initialize, make_global_sharded)
+    global_mesh, initialize, make_global_sharded, shutdown)
 device = initialize(init_method=init, world_size=2, rank=rank, device="cpu")
 assert initialize() == device  # idempotent: a no-op once initialized
 assert dist.get_world_size() == 2 and dist.get_backend() == "gloo"
@@ -60,6 +60,7 @@ final, _, hist = fn(g_state, g_statics, bg)
 whole = gather_state(mesh, final)
 np.savez(out + "/rank%%d.npz" %% rank, u=final.mean.u.numpy(),
          dens=whole.rays.dens.numpy(), hist_u=hist.u.numpy())
+shutdown()
 """ % {"repo": REPO}
 
 
@@ -76,8 +77,9 @@ def test_two_process_sharded_run_matches_single_process(tmp_path):
     finally:
         for p in procs:
             p.kill()
-    for p, (out, err) in zip(procs, outs):
-        assert p.returncode == 0, f"worker failed:\n{out}\n{err[-4000:]}"
+    assert all(p.returncode == 0 for p in procs), "ranks failed:\n" + (
+        "\n".join(f"rank {r}: exit {p.returncode}\n{o[-2000:]}\n{e[-3000:]}"
+                  for r, (p, (o, e)) in enumerate(zip(procs, outs))))
 
     cfg = mt.REFERENCE_RUN_CONFIG
     gc = mt.GridConfig()
@@ -122,7 +124,7 @@ def test_initialize_a_world_of_one_on_the_cpu():
         assert all(torch.equal(g, torch.arange(6.0, dtype=torch.float64))
                    for g in got)
     finally:
-        torch.distributed.destroy_process_group()
+        distributed.shutdown()
 
 
 def test_initialize_names_the_missing_card_and_refuses_nccl_on_the_cpu():

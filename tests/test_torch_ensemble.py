@@ -24,6 +24,7 @@ from msgwam_tpu_torch.ops.step_cuda_stream import (simulate_streaming,
                                                    simulate_streaming_ensemble)
 from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
                                        make_mesh, stack_ensemble)
+from msgwam_tpu_torch.parallel.distributed import shutdown
 
 torch.set_num_threads(1)
 
@@ -193,7 +194,7 @@ def test_ensemble_rejections():
                               mesh=make_mesh(axis="ensemble"),
                               observe=lambda s, st, aux: s.mean)
     finally:
-        torch.distributed.destroy_process_group()
+        shutdown()
 
 
 @pytest.fixture

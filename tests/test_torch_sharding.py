@@ -33,6 +33,7 @@ from msgwam_tpu_torch.ops import collective, rhs_cuda_windowed
 from msgwam_tpu_torch.parallel import (P, ensemble_simulate, gather_state,
                                        initialize_distributed, make_mesh,
                                        sharded_simulate)
+from msgwam_tpu_torch.parallel.distributed import shutdown
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT = 60
@@ -56,6 +57,7 @@ from msgwam_tpu_torch.ops import collective
 from msgwam_tpu_torch.parallel import (
     ensemble_simulate, gather_state, initialize_distributed, make_mesh,
     shard_state, sharded_simulate, sharded_step_fn)
+from msgwam_tpu_torch.parallel.distributed import shutdown
 
 initialize_distributed(init_method=init, world_size=world, rank=rank,
                        device="cpu")
@@ -164,6 +166,7 @@ def case_mega():
 for c in cases:
     globals()["case_" + c]()
 np.savez(out + "/rank%%d.npz" %% rank, **res)
+shutdown()
 """ % {"repo": REPO}
 
 
@@ -288,8 +291,11 @@ def _spmd(root, world: int, cases):
     finally:
         for p in procs:
             p.kill()
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{o}\n{e[-4000:]}"
+    # every rank's report: one that aborted because a peer failed first
+    # shows beside that peer
+    assert all(p.returncode == 0 for p in procs), "ranks failed:\n" + (
+        "\n".join(f"rank {r}: exit {p.returncode}\n{o[-2000:]}\n{e[-3000:]}"
+                  for r, (p, (o, e)) in enumerate(zip(procs, outs))))
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
 
 
@@ -469,7 +475,7 @@ def world_of_one():
     try:
         yield
     finally:
-        torch.distributed.destroy_process_group()
+        shutdown()
 
 
 def _port_ref64(jax_inputs):

@@ -72,12 +72,12 @@ from msgwam_tpu_torch.ops import collective
 from msgwam_tpu_torch.parallel import (
     build_sharded_simulate_fn, ensemble_simulate, gather_state,
     initialize_distributed, make_mesh, shard_state)
+from msgwam_tpu_torch.parallel.distributed import shutdown
 
 initialize_distributed(init_method=init, world_size=world, rank=rank,
                        device="cpu")
 mesh = make_mesh(world)
 emesh = make_mesh(world, axis="ensemble")
-group = mesh.get_group("rays")
 inp = torch.load(out + "/../inputs.pt", weights_only=False)
 res = {}
 
@@ -121,7 +121,8 @@ cfg, bg, state, statics = inp["f64"]
 run = mtt.RunConfig(dt=120.0, n_steps=%(n_steps)d, save_every=%(n_steps)d)
 for remat in (False, "full"):
     grads(f"xla_{remat}", cfg, bg, state, statics,
-          lambda s, st, b: mtt.simulate(s, st, b, cfg, run, axis_name=group,
+          lambda s, st, b: mtt.simulate(s, st, b, cfg, run,
+                                        axis_name=mesh.get_group("rays"),
                                         remat=remat)[0], inp["weights"]["f64"])
 
 cfg, bg, state, statics = inp["f32"]
@@ -158,6 +159,7 @@ cfg, bg, states, statics = inp["mega"]
 ens_grads("mega", cfg, bg, states, statics,
           mtt.RunConfig(dt=120.0, n_steps=4, save_every=2), "mega")
 np.savez(out + "/rank%%d.npz" %% rank, **res)
+shutdown()
 """ % {"repo": REPO, "n_steps": N_STEPS, "k_steps": K_STEPS, "routes": ROUTES}
 
 
@@ -277,8 +279,9 @@ def _finish(out, procs):
     finally:
         for p in procs:
             p.kill()
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{o}\n{e[-4000:]}"
+    assert all(p.returncode == 0 for p in procs), "ranks failed:\n" + (
+        "\n".join(f"rank {r}: exit {p.returncode}\n{o[-2000:]}\n{e[-3000:]}"
+                  for r, (p, (o, e)) in enumerate(zip(procs, outs))))
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(len(procs))]
 
 
