@@ -185,6 +185,17 @@ use), then, in order:
    flux tail, three all-reduces a step; (g) ``--save-every 72 --steps
    720`` against one 720-step launch, in turns: Path B's host work a
    launch, and whether the two final states are bitwise equal;
+19. (before 17) the program's tracing (``utils/profiling.py``) on the
+   bench population at 1e5 in a seeded random order (as a keyed draw
+   leaves it) with each tile's heights moved to a band of its own (5, 30
+   or 90 km tall, ``window_cells=16, window_cells2=48``, so that every tier
+   runs): one K4 launch, one K5 launch and one K6 launch (configs[3]'s
+   lifecycle and tidal wind) of ``TRACE_STEPS`` steps, each run with the
+   window-tier counting off and on (a CPU profiler session): its outputs
+   bitwise the same, and its tier counts equal to its twin's on the same
+   inputs (every tile window of every stage counted once); the cost of a
+   gated ``span()`` in us on this host, off and under a profiler (off:
+   under 1 us);
 17. one K4 step profiled in a fresh process: the fallback of a window that
    lost records (below), exercised on every run, last.
 
@@ -238,7 +249,7 @@ from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed
                                        stack_ensemble)
 from msgwam_tpu_torch.parallel.distributed import world
 from msgwam_tpu_torch.state import tree_map
-from msgwam_tpu_torch.utils import history_io
+from msgwam_tpu_torch.utils import history_io, profiling
 
 SEED = 0
 N_MAIN = 100_000
@@ -736,10 +747,25 @@ def profiled(fn):
 
 def device_events(prof, sleeps: bool = False) -> list:
     """The device events of a ``profiled`` window, without its sleeps (or
-    only they, with ``sleeps``)."""
+    only they, with ``sleeps``) and without the program's spans, which the
+    profiler also draws on the device's rows."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and ("spin_kernel" in e.name) == sleeps]
+
+
+def tier_buffers() -> None:
+    """The program's window-tier counters on this card, made now: a
+    profiled window would otherwise make each at its first use there, one
+    zeroing kernel more in that window's device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    with profile(activities=[ProfilerActivity.CPU]):
+        for kernel in profiling.KERNELS:
+            profiling.tier_counter(device, kernel)
+    torch.cuda.synchronize()
 
 
 def window_stats(fn, args, n_steps: int) -> dict:
@@ -839,6 +865,7 @@ def remeasure_child(job: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
+    tier_buffers()
     t.append(time.perf_counter())
     spec = torch.load(job, weights_only=False)
     fn = globals()[spec["fn"]]
@@ -3123,6 +3150,145 @@ def phase_bench(device, smi: str) -> dict:
     return res
 
 
+TRACE_STEPS = 3       # steps of [19]'s K5 and K6 launches
+SPAN_REPS = 100_000   # [19]'s gated spans timed with the profiler off
+SPAN_BAR_US = 1.0     # a gated span's cost with no profiler
+
+
+def keyed_order(state, statics, seed: int = SEED):
+    """The rays in a seeded random order, as a keyed draw leaves them."""
+    device = state.rays.r.device
+    g = torch.Generator(device=device).manual_seed(seed)
+    perm = torch.randperm(state.rays.r.shape[0], generator=g, device=device)
+    take = lambda tree: tree_map(lambda x: x[perm].contiguous(), tree)
+    return state._replace(rays=take(state.rays)), take(statics)
+
+
+def counted(kernel: str, fn, device):
+    """``fn(counter)`` inside a CPU profiler session, so that the window-tier
+    counting is on, with ``kernel``'s counter on ``device``: its result and
+    ``kernel``'s counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn(profiling.tier_counter(device, kernel))
+    torch.cuda.synchronize()
+    return out, profiling.counts()[kernel]
+
+
+def span_us(reps: int) -> float:
+    """The cost of one gated ``span()`` entered and left, in us."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with profiling.span("msgwam.cost"):
+            pass
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def tier_row(kernel: str, n: int, kernel_fn, twin_fn, device) -> dict:
+    """One kernel with counting off and on (outputs bitwise equal) and its
+    twin's counts on the same inputs (equal to the kernel's)."""
+    off = kernel_fn(None)
+    on, got = counted(kernel, kernel_fn, device)
+    bitwise = all(torch.equal(a, b) for a, b in zip(off, on))
+    _, want = counted(kernel, twin_fn, device)
+    log(f"[19] {kernel} at {n}: tiers {got} (twin {want}); counted outputs "
+        f"bitwise the uncounted {bitwise}")
+    check(bitwise, f"{kernel}: the counted launch's outputs differ")
+    check(got == want, f"{kernel}: tier counts {got}, the twin's {want}")
+    return {"tiers": got, "twin": want, "bitwise": bitwise}
+
+
+def phase_tracing(device, smi: str) -> dict:
+    """[19] The window-tier counts of K4, K5 and K6 against their twins,
+    the outputs with counting on and off, and the cost of a span."""
+    res = {"smi": smi}
+    n = N_MAIN
+    tiles = -(-n // ray_physics.TILE)
+    windows = dict(window_cells=16, window_cells2=48)
+    cfg, bg, state, statics = bench_setup(n, device, **windows)
+    device = state.rays.r.device
+    state, statics = keyed_order(state, statics)
+    state = tile_spans(state, (5.0, 30.0, 90.0))
+    n_tab = bg.centers.shape[0]
+    inp = rhs_cuda.inputs(DT, state, statics, bg, cfg)
+    fields = list(inp.fields)
+    stage = ray_physics.RK3_STAGES[0]
+    plan = rhs_cuda.device_plan(n, n_tab - 1, device)
+
+    def k4(counter):
+        outs = tuple(torch.empty_like(fields[0]) for _ in range(6))
+        wind = tuple(torch.empty((4, n_tab), device=device).unbind(0))
+        rhs_cuda_windowed.launch(inp, *state.mean, fields, outs[:3], outs[3:],
+                                 wind, stage, counts=counter)
+        return (*outs, *wind)
+
+    def k4_twin(counter):
+        return rhs_cuda_windowed.stage_reference(
+            inp, fields, None, *state.mean, None, stage, plan, counts=counter)
+
+    res["K4"] = tier_row("K4", n, k4, k4_twin, device)
+    check(sum(res["K4"]["tiers"].values()) == tiles, "K4: a tile uncounted")
+    check(all(res["K4"]["tiers"].values()), "K4: a tier never ran")
+
+    ops = step_cuda.operands(state, statics, bg, cfg, DT)
+    start = (state.rays.dens, state.rays.r, state.rays.m,
+             torch.stack([state.mean.u, state.mean.v]))
+
+    def k5(counter):
+        return step_cuda.launch(ops, *(x.clone() for x in start), TRACE_STEPS,
+                                tiers=counter)
+
+    def k5_twin(counter):
+        return step_cuda.step_resident_reference(ops, *start, TRACE_STEPS,
+                                                 tiers=counter)
+
+    res["K5"] = tier_row("K5", n, k5, k5_twin, device)
+    check(sum(res["K5"]["tiers"].values()) == 3 * TRACE_STEPS * tiles,
+          "K5: a tile window uncounted")
+
+    cfg, bg, state, statics, _, wind_fn = path_d_setup(n, device, **windows)
+    state, statics = keyed_order(state, statics)
+    state = tile_spans(state, (5.0, 30.0, 90.0))
+    ops = step_cuda.operands(state, statics, bg, cfg, DT)
+    src = step_cuda_stream._template((state.rays, statics), state.rays.r)
+    life = step_cuda_stream.lifecycle_for(bg, cfg, src)
+    wind = step_cuda_stream._wind_table(wind_fn, 0.0, 0, TRACE_STEPS, DT, n_tab,
+                                        device)
+    start = (state.rays.dens, state.rays.r, state.rays.m,
+             torch.stack([state.mean.u, state.mean.v])[None],
+             statics.active.to(torch.uint8))
+
+    def k6(counter):
+        return step_cuda_stream.launch(ops, *(x.clone() for x in start),
+                                       TRACE_STEPS, life, wind, tiers=counter)
+
+    def k6_twin(counter):
+        return step_cuda_stream.step_stream_reference(
+            ops, *start, TRACE_STEPS, life, wind, tiers=counter)
+
+    res["K6"] = tier_row("K6", n, k6, k6_twin, device)
+    check(sum(res["K6"]["tiers"].values()) == 3 * TRACE_STEPS * tiles,
+          "K6: a tile window uncounted")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    span_us(SPAN_REPS // 10)                    # warm-up
+    off = span_us(SPAN_REPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = span_us(SPAN_REPS // 100)
+    ranges = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.name == "msgwam.cost"]
+    inside = sum(ranges) / len(ranges)
+    res["span_us"] = {"off": off, "on": on, "on_recorded": inside}
+    log(f"[19] a gated span: {off:.3f} us with no profiler, {on:.3f} us under "
+        f"one, of which {inside:.3f} us inside its recorded range ({smi})")
+    check(off < SPAN_BAR_US, f"a span with no profiler costs {off:.3f} us")
+    return res
+
+
 def phase_fresh_window(device) -> dict:
     """[17] The fallback of a window that lost records, exercised on every
     run: one K4 step at 1e5 rays profiled in a fresh process.  It runs
@@ -3157,6 +3323,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     build_s = time.perf_counter() - t0
+    tier_buffers()
     log(f"[1] built {_build.library_path().name} in {build_s:.2f} s ({lib._name})")
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
@@ -3193,6 +3360,7 @@ def main() -> int:
     shard = phase_sharding(device, smi)
     examples = phase_examples(device, smi)
     bench_res = phase_bench(device, smi)
+    tracing = phase_tracing(device, smi)
     fresh = phase_fresh_window(device)
     cli_launches = {k: v for r in driver["routes"].values()
                     for k, v in r["launches"].items() if v}
@@ -3288,6 +3456,7 @@ def main() -> int:
         "k1_route": route, "path_d": path_d, "launch_sort": sort,
         "path_e": path_e, "adjoint": adjoint, "driver": driver,
         "sharding": shard, "examples": examples, "bench": bench_res,
+        "tracing": tracing,
         "profiler_windows": WINDOWS, "fresh_process_window": fresh,
         "build_s": build_s,
     }

@@ -83,6 +83,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,       # out_dens out_r out_m q_dens q_r q_m
         _P, _P, _P, _P,               # u_out v_out qu qv
         _P, _P, _P, _P, _I, _P,       # flux partials ranges sync parity tiers
+        _P,                           # tier_counts
         _I, _I, _I, _I,               # n_blocks n_red saturate_online faithful
         _I, _I,                       # staged tail
         _F, _F, _I,                   # cc bc first
@@ -103,6 +104,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,           # flux partials sync inv win
         _I, _I,                       # n_blocks n_steps
         _I, _I, _I,                   # online prognostic faithful
+        _P,                           # tier_counts
         _P,                           # stream
     ],
     "msgwam_step_stream": [
@@ -119,6 +121,7 @@ SIGNATURES = {
         _I, _F, _F, _F,               # cull m_max face_lo face_hi
         _P, _P, _P, _P,               # src_dens src_r src_m src_act
         _P, _I,                       # wind wind_rows
+        _P,                           # tier_counts
         _P,                           # stream
     ],
 }

@@ -282,4 +282,21 @@ __device__ __forceinline__ int tile_window(WindowScratch& s, int lo, int hi,
   return window_read(s, c_pad, w1, w2, base, width);
 }
 
+// n tile windows counted by their tier (0 full width, 1 first window, 2
+// second): one integer atomicAdd into the block's row of the (kTierSlots,
+// 4) counts (full, first, second, unused: utils/profiling.py's order), row
+// blockIdx.x % kTierSlots, each row on its own 32-byte sector, so that
+// blocks that count together do not queue on the same words.  K3-K5 add
+// each window as it is read (the add overlaps the tile's work); K6/K7 add
+// their block's shared-memory counts once, at the launch's end.  Integer
+// atomics change no float result: a counted launch's outputs are bitwise
+// an uncounted one's.
+constexpr int kTierSlots = 1024;
+
+__device__ __forceinline__ void count_tier(unsigned long long* counts,
+                                           int tier,
+                                           unsigned long long n = 1) {
+  atomicAdd(counts + 4 * (blockIdx.x % kTierSlots) + tier, n);
+}
+
 }  // namespace msgwam

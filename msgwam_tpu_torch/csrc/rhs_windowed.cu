@@ -94,6 +94,8 @@ struct StageArgs {
   int* sync;                         // (2, 32) ints: the arrival counters of
                                      // even and odd launches
   signed char* tiers;                // K3: one byte per tile, or null
+  unsigned long long* tier_counts;   // K3/K4: (kTierSlots, 4) counts of
+                                     // the tiles' windows, or null
 };
 
 template <int kPad>
@@ -161,6 +163,7 @@ stage_kernel(const StageArgs a) {
       const int tier = window_read(S.wsc, a.c_pad, a.w1, a.w2, base, width);
       if (kMode == kWindow && a.tiers != nullptr && tid == 0)
         a.tiers[t] = static_cast<signed char>(tier);
+      if (a.tier_counts != nullptr && tid == 0) count_tier(a.tier_counts, tier);
     }
     if (in) {
       const float du = interp_window(S.du, n_flux, base, width, rt.qf);
@@ -421,7 +424,9 @@ extern "C" int msgwam_rhs_fused(
 
 // staged = 0: K3, out_* are the tendencies, q_*, u_out, v_out, qu, qv and
 // pg unused; tiers (optional, one byte per tile: 1 window, 2 second tier, 0
-// full width) written.
+// full width) written.  K3 and K4: tier_counts (optional, (1024, 4):
+// ray_physics.cuh's count_tier) receives the launch's count of tiles at
+// full width, in the first window and in the second.
 // staged = 1: K4, out_* are y' and q_* the RK3 registers (read after the
 // first stage, written always); cc, bc and first are the stage's
 // coefficients.  tail 0 (kTailNone): no deposit, flux unused.  tail 1
@@ -441,8 +446,9 @@ extern "C" int msgwam_rhs_windowed(
     float* out_dens, float* out_r, float* out_m, float* q_dens, float* q_r,
     float* q_m, float* u_out, float* v_out, float* qu, float* qv, float* flux,
     double* partials, int* ranges, int* sync, int parity, signed char* tiers,
-    int n_blocks, int n_red, int saturate_online, int faithful, int staged,
-    int tail, float cc, float bc, int first, void* stream) {
+    unsigned long long* tier_counts, int n_blocks, int n_red,
+    int saturate_online, int faithful, int staged, int tail, float cc,
+    float bc, int first, void* stream) {
   using namespace msgwam;
   StageArgs a;
   if (!fill_stage(a, centers, faces, u, v, rhobar, n_tab, c_pad, w1, w2, dt,
@@ -455,6 +461,7 @@ extern "C" int msgwam_rhs_windowed(
        (pg == nullptr || u_out == nullptr || v_out == nullptr ||
         qu == nullptr || qv == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.tier_counts = tier_counts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!staged) {
     a.tiers = tiers;

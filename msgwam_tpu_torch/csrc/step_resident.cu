@@ -100,7 +100,14 @@
 //
 // Occupancy: both instantiations are bounded to 64 registers, four
 // 256-thread blocks per SM (kBlocksPerSm), which the shared-memory budget
-// above assumes.
+// above assumes.  With a.tier_counts (a profiler's session,
+// utils/profiling.py) thread 0 counts its tiles' window tiers: K5 with one
+// integer atomicAdd a tile window as it reads it (a block holds many
+// tiles, and the adds overlap their work), K6/K7 in shared memory
+// (Fixed::tier_n), added once at the launch's end (at 1e5 a block holds
+// one tile, and an add a window waited at each grid-wide flux wait: 7.5%
+// more time).  K5 counting in shared memory spills at the register bound;
+// a count in a register across the launch spills in both.
 #include <algorithm>
 #include <climits>
 
@@ -130,6 +137,8 @@ struct ResidentArgs {
   int n_slots;                       // tiles per block in shared memory
   bool inv_shared;                   // every block owns one tile: its
                                      // invariants in shared memory
+  unsigned long long* tier_counts;   // (kTierSlots, 4) counts of the
+                                     // deposit passes' windows, or null
   // K6/K7 only (kStream)
   unsigned char* act;                // the mask, updated in place (= f.act)
   const float *src_dens, *src_r, *src_m;   // relaunch template, or null
@@ -157,13 +166,14 @@ struct Fixed {
   WindowScratch wsc;
   int win[kWinShared];     // each tile's window, base << 16 | width
   double wpart[kWarps][2]; // a narrow tile's per-warp deposit sums
+  unsigned tier_n[4];      // K6/K7: the block's tile windows by tier
 };
 constexpr int kStage = sizeof(DepositTile) / sizeof(double);
 constexpr int kStageMax = kInvFields * kThreads / 2;   // the one-tile dyn area
 
-static_assert(sizeof(Fixed<128>) == 44 * 128 + 6656 &&
-                  sizeof(Fixed<256>) == 44 * 256 + 6656,
-              "ops/step_cuda.py:resident_plan assumes 44 kPad + 6656 bytes");
+static_assert(sizeof(Fixed<128>) == 44 * 128 + 6672 &&
+                  sizeof(Fixed<256>) == 44 * 256 + 6672,
+              "ops/step_cuda.py:resident_plan assumes 44 kPad + 6672 bytes");
 
 __host__ __device__ constexpr int slot_floats(bool online) {
   return online ? 6 : 8;
@@ -402,6 +412,8 @@ step_resident_kernel(const ResidentArgs a) {
       fs.reduce(reinterpret_cast<double*>(dyn), kStageMax, s);
     return;
   }
+  if (kStream && a.tier_counts != nullptr && threadIdx.x == 0)
+    S.tier_n[0] = S.tier_n[1] = S.tier_n[2] = 0;
   for (int c = threadIdx.x; c < a.c_pad; c += kThreads) {
     S.u[c] = c < n_cell ? uv[c] : 0.0f;
     S.v[c] = c < n_cell ? uv[n_cell + c] : 0.0f;
@@ -491,7 +503,13 @@ step_resident_kernel(const ResidentArgs a) {
       __syncthreads();
       if (threadIdx.x == 0) {
         int base, width;
-        window_read(S.wsc, a.c_pad, a.w1, a.w2, base, width);
+        const int tier = window_read(S.wsc, a.c_pad, a.w1, a.w2, base, width);
+        if (a.tier_counts != nullptr) {
+          if (kStream)
+            ++S.tier_n[tier];
+          else
+            count_tier(a.tier_counts, tier);
+        }
         const int w = base << 16 | width;
         if (j < kWinShared)
           S.win[j] = w;
@@ -671,6 +689,8 @@ step_resident_kernel(const ResidentArgs a) {
       uv[c] = S.u[c];
       uv[n_cell + c] = S.v[c];
     }
+  if (kStream && a.tier_counts != nullptr && threadIdx.x == 0)
+    for (int t = 0; t < 3; ++t) count_tier(a.tier_counts, t, S.tier_n[t]);
 }
 
 // The block plan of a launch (mirrored by ops/step_cuda.py:resident_plan).
@@ -857,7 +877,11 @@ extern "C" int msgwam_step_resident_plan(int n_per, int n_members, int c_pad,
 // flux (2, 2, n_tab - 1), partials (2, 2 (n_tab - 1), tile blocks), sync
 // (2, 2, 32) ints zeroed before the launch, inv (8, n) (unused when every
 // block owns one tile), win (tiles_per_block - 64, n_blocks) ints (unused
-// below 65 tiles per block); n_blocks must be the plan's.
+// below 65 tiles per block); n_blocks must be the plan's.  tier_counts
+// (optional, (1024, 4): ray_physics.cuh's count_tier) receives the launch's
+// count of tile windows at full width, in the first window and in the
+// second, one per tile and stage (the offline saturation's window is not
+// counted).
 // A refused launch (cudaErrorCooperativeLaunchTooLarge and the like) comes
 // back as its error code.
 extern "C" int msgwam_step_resident(
@@ -870,7 +894,8 @@ extern "C" int msgwam_step_resident(
     float* dens_prop, float* uv, const float* rhobar, const float* pg,
     const float* inv_rho, float* flux, double* partials, int* sync,
     float* inv, int* win, int n_blocks, int n_steps, int online,
-    int prognostic, int faithful, void* stream) {
+    int prognostic, int faithful, unsigned long long* tier_counts,
+    void* stream) {
   using namespace msgwam;
   ResidentArgs a;
   if (!fill_args(a, g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv, n_tab, c_pad,
@@ -879,6 +904,7 @@ extern "C" int msgwam_step_resident(
                  inv_rho, flux, partials, sync, inv, win, n_blocks, n_steps,
                  online, prognostic, faithful))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.tier_counts = tier_counts;
   return static_cast<int>(launch_planned<false>(a, n, 1, n_blocks, stream));
 }
 
@@ -903,7 +929,7 @@ extern "C" int msgwam_step_stream(
     int prognostic, int faithful, int cull, float m_max, float face_lo,
     float face_hi, const float* src_dens, const float* src_r,
     const float* src_m, const unsigned char* src_act, const float* wind,
-    int wind_rows, void* stream) {
+    int wind_rows, unsigned long long* tier_counts, void* stream) {
   using namespace msgwam;
   const bool relaunch = src_dens != nullptr;
   if (n_members < 1 || n_per < 1 || blocks_per_member < 1 ||
@@ -937,6 +963,7 @@ extern "C" int msgwam_step_stream(
   a.n_members = n_members;
   a.n_per = n_per;
   a.bpm = blocks_per_member;
+  a.tier_counts = tier_counts;
   return static_cast<int>(
       launch_planned<true>(a, n_per, n_members, blocks_per_member, stream));
 }

@@ -24,6 +24,7 @@ from ..ops.projection import required_span
 from ..ops.ray_physics import third
 from ..ops.saturation import saturate_direct
 from ..state import Background, RayStatics, State, torch_dtype, tree_axpy, tree_map
+from ..utils import profiling
 from . import sources as _sources
 from .rhs import ray_side, rhs as rhs_default
 
@@ -161,6 +162,7 @@ class StepAux(NamedTuple):
     dens_prop: torch.Tensor
 
 
+@profiling.spanned("msgwam.step")
 def step(
     dt,
     state: State,
@@ -187,38 +189,40 @@ def step(
     aux = StepAux(dens_prop=state.rays.dens)
 
     if not cfg.saturate_online:
-        rays, prev_rays = state.rays, prev.rays
-        # the rays' read of the replicated background (ray sharding)
-        _, ray_bg = ray_side(None, bg, axis_name)
-        # Reference quirk 2: the height rate is divided by 1, not dt
-        r_div = 1.0 if cfg.faithful_offline_rates else dt
-        dens = saturate_direct(
-            dt,
-            rays.dens,
-            prev_rays.r,
-            (rays.r - prev_rays.r) / r_div,
-            prev_rays.dr,
-            (rays.dr - prev_rays.dr) / dt,
-            rays.k,
-            rays.l,
-            prev_rays.m,
-            (rays.m - prev_rays.m) / dt,
-            statics.dkk,
-            statics.dll,
-            statics.rr_mm_area,
-            ray_bg.centers,
-            ray_bg.rhobar,
-            cfg.bvf,
-            cfg.kappa,
-            cfg.phi0,
-            faithful=cfg.faithful_saturation,
-            active=statics.active,
-            interp_backend=cfg.interp_backend,
-        )
-        state = state._replace(rays=rays._replace(dens=dens))
+        with profiling.span("msgwam.step.saturate"):
+            rays, prev_rays = state.rays, prev.rays
+            # the rays' read of the replicated background (ray sharding)
+            _, ray_bg = ray_side(None, bg, axis_name)
+            # Reference quirk 2: the height rate is divided by 1, not dt
+            r_div = 1.0 if cfg.faithful_offline_rates else dt
+            dens = saturate_direct(
+                dt,
+                rays.dens,
+                prev_rays.r,
+                (rays.r - prev_rays.r) / r_div,
+                prev_rays.dr,
+                (rays.dr - prev_rays.dr) / dt,
+                rays.k,
+                rays.l,
+                prev_rays.m,
+                (rays.m - prev_rays.m) / dt,
+                statics.dkk,
+                statics.dll,
+                statics.rr_mm_area,
+                ray_bg.centers,
+                ray_bg.rhobar,
+                cfg.bvf,
+                cfg.kappa,
+                cfg.phi0,
+                faithful=cfg.faithful_saturation,
+                active=statics.active,
+                interp_backend=cfg.interp_backend,
+            )
+            state = state._replace(rays=rays._replace(dens=dens))
 
     if cfg.cull:
-        state, statics = _sources.cull(state, statics, bg, cfg)
+        with profiling.span("msgwam.step.cull"):
+            state, statics = _sources.cull(state, statics, bg, cfg)
     return state, statics, aux
 
 
@@ -250,6 +254,7 @@ def _checkpoint(fn, key, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
+@profiling.spanned("msgwam.simulate")
 def simulate(
     state: State,
     statics: RayStatics,
@@ -331,7 +336,8 @@ def simulate(
     if run.n_steps % run.save_every != 0:
         raise ValueError("n_steps must be divisible by save_every")
     if validate:
-        validate_inputs(state, statics, bg, cfg, axis_name)
+        with profiling.span("msgwam.simulate.validate"):
+            validate_inputs(state, statics, bg, cfg, axis_name)
 
     use_sort = sort_every > 0
     slot = (torch.arange(state.rays.r.shape[0], device=state.rays.r.device)
@@ -351,27 +357,30 @@ def simulate(
         """Step ``i``: the sort, the prescribed wind, the step and the
         relaunch."""
         if use_sort and i % sort_every == 0:
-            order = torch.argsort(
-                torch.where(statics.active, state.rays.r,
-                            torch.full_like(state.rays.r, math.inf)),
-                stable=True)
-            state = state._replace(rays=_gather(state.rays, order))
-            statics = _gather(statics, order)
-            slot = slot[order]
+            with profiling.span("msgwam.simulate.sort"):
+                order = torch.argsort(
+                    torch.where(statics.active, state.rays.r,
+                                torch.full_like(state.rays.r, math.inf)),
+                    stable=True)
+                state = state._replace(rays=_gather(state.rays, order))
+                statics = _gather(statics, order)
+                slot = slot[order]
         if wind_fn is not None:
-            t = t0 + torch.tensor(float(i), dtype=t_dtype) * run.dt
-            u, v = wind_fn(t)
-            mean = state.mean
-            state = state._replace(mean=mean._replace(
-                u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
+            with profiling.span("msgwam.simulate.wind"):
+                t = t0 + torch.tensor(float(i), dtype=t_dtype) * run.dt
+                u, v = wind_fn(t)
+                mean = state.mean
+                state = state._replace(mean=mean._replace(
+                    u=_broadcast(u, mean.u), v=_broadcast(v, mean.v)))
         state, statics, aux = step(run.dt, state, statics, bg, cfg, axis_name,
                                    rhs)
         if cfg.relaunch and source is not None:
-            template = source(source_key) if keyed_source else source
-            if use_sort:
-                template = _gather(template, slot)
-            if relaunch_every <= 1 or i % relaunch_every == 0:
-                state, statics = _sources.relaunch(state, statics, template)
+            with profiling.span("msgwam.simulate.relaunch"):
+                template = source(source_key) if keyed_source else source
+                if use_sort:
+                    template = _gather(template, slot)
+                if relaunch_every <= 1 or i % relaunch_every == 0:
+                    state, statics = _sources.relaunch(state, statics, template)
         return state, statics, slot, aux
 
     def block(b, state, statics, slot):
@@ -386,7 +395,9 @@ def simulate(
 
     frames = []
     if include_t0:
-        frames.append(observe(state, statics, StepAux(dens_prop=state.rays.dens)))
+        with profiling.span("msgwam.simulate.history"):
+            frames.append(observe(state, statics,
+                                  StepAux(dens_prop=state.rays.dens)))
     with collective.checked(axis_name):
         for b in range(run.n_steps // run.save_every):
             if remat:
@@ -394,13 +405,16 @@ def simulate(
                                                         statics, slot)
             else:
                 state, statics, slot, aux = block(b, state, statics, slot)
-            frames.append(observe(*unsorted(state, statics, aux, slot)))
-    if use_sort:
-        state, statics, _ = unsorted(state, statics, (), slot)
-    if include_t0 and len(frames) > 1:
-        # frame 0 takes the history's dtypes, as in the JAX package
-        frames[0] = tree_map(lambda h0, h: h0.to(h.dtype), frames[0], frames[1])
-    history = tree_map(lambda *xs: torch.stack(xs), *frames)
+            with profiling.span("msgwam.simulate.history"):
+                frames.append(observe(*unsorted(state, statics, aux, slot)))
+    with profiling.span("msgwam.simulate.history"):
+        if use_sort:
+            state, statics, _ = unsorted(state, statics, (), slot)
+        if include_t0 and len(frames) > 1:
+            # frame 0 takes the history's dtypes, as in the JAX package
+            frames[0] = tree_map(lambda h0, h: h0.to(h.dtype), frames[0],
+                                 frames[1])
+        history = tree_map(lambda *xs: torch.stack(xs), *frames)
     return state, statics, history
 
 

@@ -51,7 +51,9 @@ For CPU tensors each entry point runs its plain twin
 (:func:`rhs_fused_windowed_reference`,
 :func:`rk3_step_fused_windowed_reference`); ``LAUNCHES`` counts kernel
 launches per entry point, and ``"rk3_step_fused_windowed_flux"`` those of
-K4's launches that took the flux tail.
+K4's launches that took the flux tail.  While a profiler records, each
+launch (or its twin) is a span ``msgwam.launch.k3``/``k4`` and adds its
+tiles' window tiers to the kernel's counts (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ import torch
 
 from .. import _build
 from ..state import MeanState, State
+from ..utils import profiling
 from . import adjoint, collective, ray_physics, rhs_cuda
 from .rhs_cuda import window_for  # noqa: F401  (the windowed kernels' window)
 
@@ -77,7 +80,8 @@ def _ptr(x):
 
 
 def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None,
-           stage=None, tiers: bool = False, work=None, flux_out: bool = False):
+           stage=None, tiers: bool = False, work=None, flux_out: bool = False,
+           counts=None):
     """One launch on checked inputs: returns ``(outs, flux, tiers)``.
 
     K3 (``stage is None``): ``outs`` are the three tendencies, new arrays
@@ -89,7 +93,9 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
     (``u_out``, ``v_out`` may be ``u``, ``v``); without a prognostic wind
     the flux is not returned (``None``).  ``flux_out`` takes K4's flux
     tail: the flux written and returned, ``wind`` unused and the wind left
-    alone.  ``fields`` default to ``inp.fields``."""
+    alone.  ``fields`` default to ``inp.fields``.  ``counts``, a
+    :func:`..utils.profiling.tier_counter` buffer or ``None``, receives
+    the launch's tile windows by tier."""
     dt, bvf, kappa, f0, ff0 = inp.scalars
     c_pad, w1, w2 = inp.window
     bg = inp.bg
@@ -109,20 +115,21 @@ def launch(inp: rhs_cuda.Inputs, u, v, fields=None, outs=None, q=None, wind=None
             else TAIL_NONE) if staged else TAIL_NONE
     wind = wind if tail == TAIL_WIND else (None,) * 4
     cnt = rhs_cuda.counters(device)
-    err = _build.library().msgwam_rhs_windowed(
-        bg.centers.data_ptr(), bg.faces.data_ptr(), u.data_ptr(), v.data_ptr(),
-        bg.rhobar.data_ptr(), bg.pressure_gradient.data_ptr(), n_tab, c_pad,
-        w1, w2, dt, bvf, kappa, f0, ff0,
-        *(f.data_ptr() for f in fields), inp.active.data_ptr(), n,
-        *(o.data_ptr() for o in outs), *(_ptr(x) for x in q),
-        *(_ptr(x) for x in wind), work.flux.data_ptr(),
-        work.partials.data_ptr(), work.ranges.data_ptr(),
-        cnt.buf.data_ptr(), cnt.parity, _ptr(tier_t), work.plan.blocks,
-        work.plan.reducers, int(inp.online), int(inp.faithful), int(staged),
-        tail, cc, bc, int(bool(first)),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "msgwam_rhs_windowed")
+    with profiling.span("msgwam.launch.k4" if staged else "msgwam.launch.k3"):
+        err = _build.library().msgwam_rhs_windowed(
+            bg.centers.data_ptr(), bg.faces.data_ptr(), u.data_ptr(),
+            v.data_ptr(), bg.rhobar.data_ptr(), bg.pressure_gradient.data_ptr(),
+            n_tab, c_pad, w1, w2, dt, bvf, kappa, f0, ff0,
+            *(f.data_ptr() for f in fields), inp.active.data_ptr(), n,
+            *(o.data_ptr() for o in outs), *(_ptr(x) for x in q),
+            *(_ptr(x) for x in wind), work.flux.data_ptr(),
+            work.partials.data_ptr(), work.ranges.data_ptr(),
+            cnt.buf.data_ptr(), cnt.parity, _ptr(tier_t), _ptr(counts),
+            work.plan.blocks, work.plan.reducers, int(inp.online),
+            int(inp.faithful), int(staged), tail, cc, bc, int(bool(first)),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _build.check(err, "msgwam_rhs_windowed")
     cnt.launched()
     LAUNCHES["rk3_step_fused_windowed" if staged else "rhs_fused_windowed"] += 1
     if tail == TAIL_FLUX:
@@ -140,8 +147,9 @@ def rhs_fused_windowed(dt, state, statics, bg, cfg):
     def kernel(dt, state, statics, bg):
         if state.rays.r.device.type == "cpu":
             return rhs_fused_windowed_reference(dt, state, statics, bg, cfg)
-        outs, flux, _ = launch(rhs_cuda.inputs(dt, state, statics, bg, cfg),
-                               *state.mean)
+        outs, flux, _ = launch(
+            rhs_cuda.inputs(dt, state, statics, bg, cfg), *state.mean,
+            counts=profiling.tier_counter(state.rays.r.device, "K3"))
         return dict(zip(("dens", "r", "m"), outs)), flux
 
     return adjoint.kernel_call(kernel, functools.partial(rhs_cuda.fused_plain, cfg=cfg),
@@ -149,25 +157,31 @@ def rhs_fused_windowed(dt, state, statics, bg, cfg):
 
 
 def rhs_fused_windowed_reference(dt, state, statics, bg, cfg):
-    """Plain PyTorch twin of K3, in the state's own dtype."""
+    """Plain PyTorch twin of K3, in the state's own dtype; a span and
+    K3's tier counts while a profiler records, as the kernel's."""
     params, scalars, tables = rhs_cuda.prepare_inputs(dt, state, statics, bg, cfg)
     fields = rhs_cuda.ray_fields(state, statics)
-    tend, flux, _ = ray_physics.fused(
-        params, scalars, tables, fields, statics.active, cfg.saturate_online,
-        cfg.faithful_saturation, window_for(cfg, bg.centers.shape[0]),
-        ray_physics.stage_plan(fields[0].shape[0], bg.centers.shape[0] - 1))
+    with profiling.span("msgwam.launch.k3"):
+        tend, flux, tiers = ray_physics.fused(
+            params, scalars, tables, fields, statics.active,
+            cfg.saturate_online, cfg.faithful_saturation,
+            window_for(cfg, bg.centers.shape[0]),
+            ray_physics.stage_plan(fields[0].shape[0], bg.centers.shape[0] - 1))
+        profiling.add_tiers(profiling.tier_counter(fields[0].device, "K3"), tiers)
     return tend, flux
 
 
 def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None,
-                    group=None):
+                    group=None, counts=None):
     """The twin of one K4 launch, in the inputs' dtype: the shear tables
     from ``u``, ``v``, the per-ray stage (K3's twin and the RK3 update),
     the flux summed by ``plan`` (default: the H100's), and with a
     prognostic wind the wind's stage update (:func:`ray_physics.
     wind_stage`), from the flux summed over ``group``'s ranks when a
     ``group`` is given (the flux tail and its all-reduce).  Returns ``(ys,
-    q, flux, (u, v, qu, qv))``, the flux as the wind took it."""
+    q, flux, (u, v, qu, qv))``, the flux as the wind took it.  The tiles'
+    window tiers are added to ``counts`` (a :func:`..utils.profiling.
+    tier_counter` buffer, or ``None``)."""
     dt, bvf, kappa, f0, ff0 = inp.scalars
     cc, bc, first = stage
     bg = inp.bg
@@ -178,9 +192,10 @@ def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None
     tables = ((u[1:] - u[:-1]) / dz, (v[1:] - v[:-1]) / dz, bg.rhobar.to(dtype))
     n = fields[0].shape[0]
     plan = plan or ray_physics.stage_plan(n, centers.shape[0] - 1)
-    tend, flux, _ = ray_physics.fused(params, (dt, bvf, kappa, f0), tables, fields,
-                                      inp.active, inp.online, inp.faithful,
-                                      inp.window, plan)
+    tend, flux, tiers = ray_physics.fused(params, (dt, bvf, kappa, f0), tables,
+                                          fields, inp.active, inp.online,
+                                          inp.faithful, inp.window, plan)
+    profiling.add_tiers(counts, tiers)
     q = q if q is not None else (None,) * 3
     out = [ray_physics.rk3_stage(tend[f], y, qq, dt, cc, bc, first)
            for f, y, qq in zip(("dens", "r", "m"),
@@ -200,13 +215,16 @@ def stage_reference(inp: rhs_cuda.Inputs, fields, q, u, v, quv, stage, plan=None
 def _rk3_step_reference(dt, state, statics, bg, cfg, plan=None, group=None):
     inp = rhs_cuda.inputs(dt, state, statics, bg, cfg)
     fields = list(inp.fields)
+    counts = profiling.tier_counter(fields[0].device, "K4")
     u, v = state.mean
     q = quv = None
-    for stage in ray_physics.RK3_STAGES:
-        ys, q, _, (u, v, qu, qv) = stage_reference(inp, fields, q, u, v, quv,
-                                                   stage, plan, group)
-        quv = (qu, qv)
-        fields[0], fields[1], fields[5] = ys
+    with profiling.span("msgwam.step.stages"):
+        for stage in ray_physics.RK3_STAGES:
+            with profiling.span("msgwam.launch.k4"):
+                ys, q, _, (u, v, qu, qv) = stage_reference(
+                    inp, fields, q, u, v, quv, stage, plan, group, counts)
+            quv = (qu, qv)
+            fields[0], fields[1], fields[5] = ys
     rays = state.rays._replace(dens=fields[0], r=fields[1], m=fields[5])
     return State(rays, MeanState(u, v))
 
@@ -216,35 +234,38 @@ def _rk3_step_kernel(dt, state, statics, bg, cfg, group=None):
     writes new arrays, the next two update those in place.  With a
     ``group`` and a prognostic wind each launch takes the flux tail and is
     followed by the flux's all-reduce and the wind's stage update."""
-    inp = rhs_cuda.inputs(dt, state, statics, bg, cfg)
-    sharded = group is not None and inp.prognostic
-    fields = list(inp.fields)
-    n = fields[0].shape[0]
-    device = fields[0].device
-    n_tab = bg.centers.shape[0]
-    work = rhs_cuda.scratch(n, n_tab, device)
-    ys = tuple(torch.empty_like(fields[0]) for _ in range(3))
-    q = tuple(torch.empty_like(fields[0]) for _ in range(3))
-    u, v = state.mean
-    wind = qu = qv = None
-    if inp.prognostic and not sharded:
-        wind = tuple(torch.empty((4, n_tab), dtype=torch.float32,
-                                 device=device).unbind(0))
-    if sharded:
-        dzf = bg.faces[1] - bg.faces[0]
-    for stage in ray_physics.RK3_STAGES:
-        _, flux, _ = launch(inp, u, v, fields, ys, q, wind, stage, work=work,
-                            flux_out=sharded)
-        fields[0], fields[1], fields[5] = ys
+    with profiling.span("msgwam.step.prepare"):
+        inp = rhs_cuda.inputs(dt, state, statics, bg, cfg)
+        sharded = group is not None and inp.prognostic
+        fields = list(inp.fields)
+        n = fields[0].shape[0]
+        device = fields[0].device
+        n_tab = bg.centers.shape[0]
+        work = rhs_cuda.scratch(n, n_tab, device)
+        ys = tuple(torch.empty_like(fields[0]) for _ in range(3))
+        q = tuple(torch.empty_like(fields[0]) for _ in range(3))
+        u, v = state.mean
+        wind = qu = qv = None
+        if inp.prognostic and not sharded:
+            wind = tuple(torch.empty((4, n_tab), dtype=torch.float32,
+                                     device=device).unbind(0))
         if sharded:
-            flux = collective.all_reduce_flux(flux, group)
-            u, v, qu, qv = ray_physics.wind_stage(
-                flux, u, v, qu, qv, bg.pressure_gradient, bg.rhobar, dzf,
-                inp.scalars[4], inp.scalars[0], *stage)
-        elif wind is not None:
-            u, v = wind[0], wind[1]
-    rays = state.rays._replace(dens=ys[0], r=ys[1], m=ys[2])
-    return State(rays, MeanState(u, v))
+            dzf = bg.faces[1] - bg.faces[0]
+        counts = profiling.tier_counter(device, "K4")
+    with profiling.span("msgwam.step.stages"):
+        for stage in ray_physics.RK3_STAGES:
+            _, flux, _ = launch(inp, u, v, fields, ys, q, wind, stage,
+                                work=work, flux_out=sharded, counts=counts)
+            fields[0], fields[1], fields[5] = ys
+            if sharded:
+                flux = collective.all_reduce_flux(flux, group)
+                u, v, qu, qv = ray_physics.wind_stage(
+                    flux, u, v, qu, qv, bg.pressure_gradient, bg.rhobar, dzf,
+                    inp.scalars[4], inp.scalars[0], *stage)
+            elif wind is not None:
+                u, v = wind[0], wind[1]
+        rays = state.rays._replace(dens=ys[0], r=ys[1], m=ys[2])
+        return State(rays, MeanState(u, v))
 
 
 def rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name=None):
@@ -260,11 +281,12 @@ def rk3_step_fused_windowed(dt, state, statics, bg, cfg, axis_name=None):
     and the wind's update, as the JAX package's ``psum`` under
     ``shard_map`` is; the backward differentiates the generic step with
     the same ``axis_name``, as ``_rk3_step_fused_bwd`` does."""
-    rhs_cuda.check_inputs(state, statics, bg, "rk3_step_fused_windowed")
-    kernel = (_rk3_step_kernel if state.rays.r.device.type == "cuda"
-              else _rk3_step_reference)
-    if axis_name is not None:
-        collective.check_group(axis_name)
+    with profiling.span("msgwam.step.prepare"):
+        rhs_cuda.check_inputs(state, statics, bg, "rk3_step_fused_windowed")
+        kernel = (_rk3_step_kernel if state.rays.r.device.type == "cuda"
+                  else _rk3_step_reference)
+        if axis_name is not None:
+            collective.check_group(axis_name)
     return adjoint.kernel_call(
         functools.partial(kernel, cfg=cfg, group=axis_name),
         functools.partial(_rk3_step_plain, cfg=cfg, axis_name=axis_name),

@@ -30,7 +30,10 @@ Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``); differentiable through the plain path
 (:mod:`.adjoint`).  For CPU tensors each launch runs
 the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
-kernel launches.
+kernel launches.  While a profiler records, the whole run is a span
+``msgwam.whole_run`` with its phases, each launch (or twin) a span
+``msgwam.launch.k5``, and the launches add their tile windows' tiers to
+K5's counts (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from .. import _build
 from ..constants import ROT_EARTH
 from ..state import MeanState, State, tree_map
+from ..utils import profiling
 from . import adjoint, ray_physics, rhs_cuda
 
 LAUNCHES = 0
@@ -123,9 +127,9 @@ class Plan(NamedTuple):
 
 def fixed_smem(c_pad: int) -> int:
     """The kernel's static shared memory (``Fixed<kPad>``): flux sums,
-    seven tables, the deposit tile, the window scratch, 64 tile windows
-    and the per-warp deposit sums."""
-    return 44 * (128 if c_pad <= 128 else 256) + 6656
+    seven tables, the deposit tile, the window scratch, 64 tile windows,
+    the per-warp deposit sums and the block's window-tier counts."""
+    return 44 * (128 if c_pad <= 128 else 256) + 6672
 
 
 def slot_bytes(online: bool) -> int:
@@ -144,7 +148,7 @@ def resident_plan(n_per: int, n_members: int = 1, c_pad: int = 128,
     ``min(tiles, R)`` own tiles and, with a prognostic wind, up to
     ``2 n_flux`` of the rest only reduce the flux.  A tile block holds its
     first tile in registers and up to ``B // slot_bytes`` more in shared
-    memory, ``B = smem_per_sm / 4 - reserved - fixed_smem`` (45,056 bytes on
+    memory, ``B = smem_per_sm / 4 - reserved - fixed_smem`` (45,040 bytes on
     an H100 at ``c_pad = 128``: 7 slots online, 5 offline)."""
     budget = (H100["smem_per_sm"] // BLOCKS_PER_SM - H100["reserved"]
               - fixed_smem(c_pad))
@@ -198,35 +202,40 @@ def scratch(plan: Plan, n: int, n_members: int, n_flux: int, device) -> tuple:
                         dtype=torch.int32, device=device))
 
 
-def launch(ops: Operands, dens, r, m, uv, n_steps: int):
+def launch(ops: Operands, dens, r, m, uv, n_steps: int, tiers=None):
     """One launch of ``n_steps`` whole steps on the card: updates ``dens``,
     ``r``, ``m`` and the ``(2, n_tab)`` wind ``uv`` in place and returns
     ``(dens, r, m, uv, dens_prop)``, ``dens_prop`` the density before the
-    last step's offline saturation (a copy of ``dens`` online)."""
+    last step's offline saturation (a copy of ``dens`` online).  ``tiers``,
+    a :func:`..utils.profiling.tier_counter` buffer or ``None``, receives
+    the launch's tile windows by tier."""
     global LAUNCHES
     lib = _build.library()
     n = dens.shape[0]
     device = dens.device
     with torch.cuda.device(device):
-        plan = device_plan(n, 1, ops, False)
-        qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
-        r_prev = m_prev = dens_prop = None
-        if not ops.online:
-            r_prev, m_prev, dens_prop = (torch.empty_like(dens) for _ in range(3))
-        work = scratch(plan, n, 1, ops.n_tab - 1, device)
-        err = lib.msgwam_step_resident(
-            *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
-            *(x.data_ptr() for x in ops.frozen), ops.active.data_ptr(), n,
-            dens.data_ptr(), r.data_ptr(), m.data_ptr(),
-            qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
-            _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
-            uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-            ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
-            plan.blocks_per_member, n_steps, int(ops.online),
-            int(ops.prognostic), int(ops.faithful),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-        _build.check(err, "msgwam_step_resident")
+        with profiling.span("msgwam.whole_run.scratch"):
+            plan = device_plan(n, 1, ops, False)
+            qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
+            r_prev = m_prev = dens_prop = None
+            if not ops.online:
+                r_prev, m_prev, dens_prop = (torch.empty_like(dens)
+                                             for _ in range(3))
+            work = scratch(plan, n, 1, ops.n_tab - 1, device)
+        with profiling.span("msgwam.launch.k5"):
+            err = lib.msgwam_step_resident(
+                *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
+                *(x.data_ptr() for x in ops.frozen), ops.active.data_ptr(), n,
+                dens.data_ptr(), r.data_ptr(), m.data_ptr(),
+                qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
+                _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
+                uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
+                ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
+                plan.blocks_per_member, n_steps, int(ops.online),
+                int(ops.prognostic), int(ops.faithful), _ptr(tiers),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+            _build.check(err, "msgwam_step_resident")
     LAUNCHES += 1
     return dens, r, m, uv, dens.clone() if ops.online else dens_prop
 
@@ -243,9 +252,12 @@ class Lifecycle(NamedTuple):
 
 
 def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int,
-                            act=None, life: Lifecycle = None, wind=None):
+                            act=None, life: Lifecycle = None, wind=None,
+                            tiers=None):
     """Plain PyTorch twin of one launch (any device, the inputs' dtype):
-    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing.
+    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing; the
+    tile windows of every stage go to ``tiers`` by tier, as
+    :func:`launch`'s.
 
     The K6 twin (:func:`msgwam_tpu_torch.ops.step_cuda_stream.
     step_stream_reference`) passes the mask ``act`` (default
@@ -269,9 +281,10 @@ def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int,
         for cc, bc, first in ray_physics.RK3_STAGES:
             tables = ((u[1:] - u[:-1]) / dz, (v[1:] - v[:-1]) / dz, ops.rhobar)
             fields = (dens, r, dr, k, l, m, dm, phi, dkk, dll, area)
-            tend, flux, _ = ray_physics.fused(params, (dt, bvf, kappa, f0), tables,
-                                              fields, act, ops.online,
-                                              ops.faithful, window)
+            tend, flux, tier = ray_physics.fused(params, (dt, bvf, kappa, f0),
+                                                 tables, fields, act, ops.online,
+                                                 ops.faithful, window)
+            profiling.add_tiers(tiers, tier)
             dens, qd = ray_physics.rk3_stage(tend["dens"], dens, qd, dt, cc, bc, first)
             r, qr = ray_physics.rk3_stage(tend["r"], r, qr, dt, cc, bc, first)
             m, qm = ray_physics.rk3_stage(tend["m"], m, qm, dt, cc, bc, first)
@@ -389,6 +402,7 @@ def check_run(state, cfg, run, name: str) -> None:
         raise ValueError("n_steps must be divisible by save_every")
 
 
+@profiling.spanned("msgwam.whole_run")
 def _simulate_resident_impl(state, statics, bg, cfg, run,
                             include_t0: bool = False, observe=None):
     """``run.n_steps // run.save_every`` launches of ``save_every`` steps
@@ -396,37 +410,49 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
     fields (lam, phi, dr, k, l, dm) come from the initial state."""
     from ..models.integrate import StepAux
 
-    check_run(state, cfg, run, "simulate_resident")
-    rhs_cuda.check_inputs(state, statics, bg, "simulate_resident", MAX_PAD)
-    rays, mean = state.rays, state.mean
-    cfg = rhs_cuda.apply_champion(cfg, rays.r.shape[0])
-    ops = operands(state, statics, bg, cfg, run.dt)
-    chunk = launch if rays.r.device.type == "cuda" else step_resident_reference
+    with profiling.span("msgwam.whole_run.prepare"):
+        check_run(state, cfg, run, "simulate_resident")
+        rhs_cuda.check_inputs(state, statics, bg, "simulate_resident", MAX_PAD)
+        rays, mean = state.rays, state.mean
+        cfg = rhs_cuda.apply_champion(cfg, rays.r.shape[0])
+        ops = operands(state, statics, bg, cfg, run.dt)
+        tiers = profiling.tier_counter(rays.r.device, "K5")
+        if rays.r.device.type == "cuda":
+            chunk = functools.partial(launch, tiers=tiers)
+        else:
+            def chunk(*args):
+                with profiling.span("msgwam.launch.k5"):
+                    return step_resident_reference(*args, tiers=tiers)
+        carry = (rays.dens.clone(), rays.r.clone(), rays.m.clone(),
+                 torch.stack([mean.u, mean.v]))
 
     def to_state(dens, r, m, uv):
         return State(rays._replace(dens=dens.clone(), r=r.clone(), m=m.clone()),
                      MeanState(uv[0].clone(), uv[1].clone()))
 
-    carry = (rays.dens.clone(), rays.r.clone(), rays.m.clone(),
-             torch.stack([mean.u, mean.v]))
     frames, props = [], []
     with torch.no_grad():
         for _ in range(run.n_steps // run.save_every):
             *carry, prop = chunk(ops, *carry, run.save_every)
-            frames.append(to_state(*carry))
-            props.append(prop)
-    final = to_state(*carry)
+            with profiling.span("msgwam.whole_run.frame"):
+                frames.append(to_state(*carry))
+                props.append(prop)
 
     if observe is not None:
-        hist = [observe(s, statics, StepAux(dens_prop=p))
-                for s, p in zip(frames, props)]
+        with profiling.span("msgwam.whole_run.frame"):
+            hist = [observe(s, statics, StepAux(dens_prop=p))
+                    for s, p in zip(frames, props)]
+            if include_t0:
+                hist.insert(0, observe(state, statics,
+                                       StepAux(dens_prop=rays.dens)))
+        with profiling.span("msgwam.whole_run.history"):
+            return (to_state(*carry), statics,
+                    tree_map(lambda *xs: torch.stack(xs), *hist))
+    with profiling.span("msgwam.whole_run.history"):
         if include_t0:
-            hist.insert(0, observe(state, statics,
-                                   StepAux(dens_prop=rays.dens)))
-        return final, statics, tree_map(lambda *xs: torch.stack(xs), *hist)
-    if include_t0:
-        frames.insert(0, state)
-        props.insert(0, rays.dens)
-    history_state = tree_map(lambda *xs: torch.stack(xs), *frames)
-    active = torch.stack([statics.active] * len(frames))
-    return final, statics, (history_state, active, torch.stack(props))
+            frames.insert(0, state)
+            props.insert(0, rays.dens)
+        history_state = tree_map(lambda *xs: torch.stack(xs), *frames)
+        active = torch.stack([statics.active] * len(frames))
+        return (to_state(*carry), statics,
+                (history_state, active, torch.stack(props)))

@@ -43,6 +43,10 @@ Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``), the lifecycle with online saturation only.  For CPU
 tensors each launch runs the plain twin :func:`step_stream_reference`;
 ``LAUNCHES`` counts kernel launches, K6's (one member) and K7's apart.
+While a profiler records, :func:`simulate_streaming` is a span
+``msgwam.whole_run`` with its phases, each launch (or twin) a span
+``msgwam.launch.k6`` or ``k7``, and the launches add their tile windows'
+tiers to K6's or K7's counts (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 
 from .. import _build
 from ..state import MeanState, State, tree_map
+from ..utils import profiling
 from . import adjoint, rhs_cuda, step_cuda
 from .step_cuda import Lifecycle
 
@@ -72,43 +77,48 @@ def _ptr(x):
 
 
 def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
-           wind=None, n_members: int = 1):
+           wind=None, n_members: int = 1, tiers=None):
     """One launch of ``n_steps`` steps of K6 (K7 with ``n_members > 1``):
     ``dens``, ``r``, ``m`` (``n_members * n_per`` rays, member-major), the
     ``(n_members, 2, n_tab)`` wind ``uv`` and the byte mask ``act`` are
     updated in place.  ``wind`` is ``(n_steps, 2 or 2 n_members, n_tab)``.
-    Returns ``(dens, r, m, uv, dens_prop, act)``."""
+    ``tiers``, a :func:`..utils.profiling.tier_counter` buffer or ``None``,
+    receives the launch's tile windows by tier.  Returns ``(dens, r, m, uv,
+    dens_prop, act)``."""
     lib = _build.library()
     n = dens.shape[0]
     n_per = n // n_members
     device = dens.device
     relaunch = life is not None and life.src is not None
     with torch.cuda.device(device):
-        plan = step_cuda.device_plan(n_per, n_members, ops, True)
-        qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
-        r_prev = m_prev = dens_prop = None
-        if not ops.online:
-            r_prev, m_prev = torch.empty_like(dens), torch.empty_like(dens)
-        if not ops.online or relaunch:
-            dens_prop = torch.empty_like(dens)
-        work = step_cuda.scratch(plan, n, n_members, ops.n_tab - 1, device)
+        with profiling.span("msgwam.whole_run.scratch"):
+            plan = step_cuda.device_plan(n_per, n_members, ops, True)
+            qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
+            r_prev = m_prev = dens_prop = None
+            if not ops.online:
+                r_prev, m_prev = torch.empty_like(dens), torch.empty_like(dens)
+            if not ops.online or relaunch:
+                dens_prop = torch.empty_like(dens)
+            work = step_cuda.scratch(plan, n, n_members, ops.n_tab - 1, device)
         src = life.src if relaunch else (None,) * 4
-        err = lib.msgwam_step_stream(
-            *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
-            *(x.data_ptr() for x in ops.frozen), act.data_ptr(), n_per, n_members,
-            dens.data_ptr(), r.data_ptr(), m.data_ptr(),
-            qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
-            _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
-            uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-            ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
-            plan.blocks_per_member, n_steps, int(ops.online), int(ops.prognostic), int(ops.faithful),
-            int(life is not None),
-            *((life.m_max, life.face_lo, life.face_hi) if life else (0.0,) * 3),
-            *(_ptr(x) for x in src), _ptr(wind),
-            0 if wind is None else wind.shape[1],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-        _build.check(err, "msgwam_step_stream")
+        with profiling.span(_launch_span(n_members)):
+            err = lib.msgwam_step_stream(
+                *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
+                *(x.data_ptr() for x in ops.frozen), act.data_ptr(), n_per,
+                n_members, dens.data_ptr(), r.data_ptr(), m.data_ptr(),
+                qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
+                _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
+                uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
+                ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
+                plan.blocks_per_member, n_steps, int(ops.online),
+                int(ops.prognostic), int(ops.faithful), int(life is not None),
+                *((life.m_max, life.face_lo, life.face_hi) if life
+                  else (0.0,) * 3),
+                *(_ptr(x) for x in src), _ptr(wind),
+                0 if wind is None else wind.shape[1], _ptr(tiers),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+            _build.check(err, "msgwam_step_stream")
     LAUNCHES["K7" if n_members > 1 else "K6"] += 1
     if dens_prop is None:
         dens_prop = dens.clone()
@@ -117,7 +127,7 @@ def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
 
 def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
                           life: Lifecycle = None, wind=None,
-                          n_members: int = 1):
+                          n_members: int = 1, tiers=None):
     """Plain PyTorch twin of one launch of K6/K7, with :func:`launch`'s
     arguments: each member runs K5's twin
     (:func:`msgwam_tpu_torch.ops.step_cuda.step_resident_reference`) with
@@ -138,10 +148,29 @@ def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
             wind_e = wind if wind.shape[1] == 2 else wind[:, 2 * e:2 * e + 2]
         outs.append(step_cuda.step_resident_reference(
             ops_e, dens[sl], r[sl], m[sl], uv[e], n_steps, act=act[sl].bool(),
-            life=life_e, wind=wind_e))
+            life=life_e, wind=wind_e, tiers=tiers))
     d, rr, mm, w, prop, a = (list(x) for x in zip(*outs))
     return (torch.cat(d), torch.cat(rr), torch.cat(mm), torch.stack(w),
             torch.cat(prop), torch.cat(a).to(act.dtype))
+
+
+def _launch_span(n_members: int) -> str:
+    return "msgwam.launch.k7" if n_members > 1 else "msgwam.launch.k6"
+
+
+def _launcher(device, n_members: int):
+    """The launch of K6 (K7 with ``n_members > 1``) on ``device``, or for
+    CPU tensors its twin in the launch's span; either adds to the
+    kernel's tier counts while a profiler records."""
+    tiers = profiling.tier_counter(device, "K7" if n_members > 1 else "K6")
+    if device.type == "cuda":
+        return functools.partial(launch, tiers=tiers)
+
+    def twin(*args, **kwargs):
+        with profiling.span(_launch_span(n_members)):
+            return step_stream_reference(*args, tiers=tiers, **kwargs)
+
+    return twin
 
 
 def _wind_table(wind_fn, t0, ci: int, S: int, dt, n_tab: int, device):
@@ -224,6 +253,7 @@ def _unsort(slot, slabs):
     return tuple(x[inv] for x in slabs)
 
 
+@profiling.spanned("msgwam.whole_run")
 def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
                        tile_rows: int = 0, source=None, wind_fn=None,
                        t0: float = 0.0, launch_sort=None, observe=None,
@@ -255,92 +285,102 @@ def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
     (the TPU's streamed tile height).  Forward only, as the JAX package's
     streaming path is: ``simulate`` differentiates the lifecycle."""
     del tile_rows
-    do_cull, do_relaunch = _guards(state, cfg, run, "simulate_streaming")
-    if do_relaunch and source is None:
-        raise ValueError("cfg.relaunch requires a source template")
-    keyed_source = callable(source)
-    if keyed_source and source_key is None:
-        raise ValueError("a callable source requires source_key")
-    _build.forward_only("simulate_streaming", "simulate()", state, statics, bg)
-    rhs_cuda.check_inputs(state, statics, bg, "simulate_streaming",
-                          step_cuda.MAX_PAD)
-    from ..models.integrate import StepAux
+    with profiling.span("msgwam.whole_run.prepare"):
+        do_cull, do_relaunch = _guards(state, cfg, run, "simulate_streaming")
+        if do_relaunch and source is None:
+            raise ValueError("cfg.relaunch requires a source template")
+        keyed_source = callable(source)
+        if keyed_source and source_key is None:
+            raise ValueError("a callable source requires source_key")
+        _build.forward_only("simulate_streaming", "simulate()", state, statics,
+                            bg)
+        rhs_cuda.check_inputs(state, statics, bg, "simulate_streaming",
+                              step_cuda.MAX_PAD)
+        from ..models.integrate import StepAux
 
-    rays, mean = state.rays, state.mean
-    n = rays.r.shape[0]
-    device = rays.r.device
-    cfg = rhs_cuda.apply_champion(cfg, n)
-    ops = step_cuda.operands(state, statics, bg, cfg, run.dt)
-    chunk = launch if device.type == "cuda" else step_stream_reference
-    use_sort = bool(launch_sort)
-    S = run.save_every
-    n_tab = bg.centers.shape[0]
+        rays, mean = state.rays, state.mean
+        n = rays.r.shape[0]
+        device = rays.r.device
+        cfg = rhs_cuda.apply_champion(cfg, n)
+        ops = step_cuda.operands(state, statics, bg, cfg, run.dt)
+        chunk = _launcher(device, 1)
+        use_sort = bool(launch_sort)
+        S = run.save_every
+        n_tab = bg.centers.shape[0]
 
-    bounds = lifecycle_for(bg, cfg) if do_cull else None
-    fixed_src = None
-    if do_relaunch and not keyed_source:
-        _check_relaunch_template(*source, rays, statics)
-        fixed_src = _template(source, rays.r)
+        bounds = lifecycle_for(bg, cfg) if do_cull else None
+        fixed_src = None
+        if do_relaunch and not keyed_source:
+            _check_relaunch_template(*source, rays, statics)
+            fixed_src = _template(source, rays.r)
+
+        statics0 = statics
+        frozen, active = ops.frozen, statics.active
+        dens, r, m = rays.dens.clone(), rays.r.clone(), rays.m.clone()
+        uv = torch.stack([mean.u, mean.v])[None].contiguous()
+        act = statics.active.to(torch.uint8)      # the kernel's byte mask
+        slot = torch.arange(n, dtype=torch.int32, device=device)
 
     def to_state(dens, r, m, uv):
         return State(rays._replace(dens=dens, r=r, m=m),
                      MeanState(uv[0, 0].clone(), uv[0, 1].clone()))
 
-    statics0 = statics
-    frozen, active = ops.frozen, statics.active
-    dens, r, m = rays.dens.clone(), rays.r.clone(), rays.m.clone()
-    uv = torch.stack([mean.u, mean.v])[None].contiguous()
-    act = statics.active.to(torch.uint8)      # the kernel's byte mask
-    slot = torch.arange(n, dtype=torch.int32, device=device)
     frames = []
     if include_t0:
-        frames.append((state, statics0.active, rays.dens) if observe is None
-                      else observe(state, statics0,
-                                   StepAux(dens_prop=rays.dens)))
+        with profiling.span("msgwam.whole_run.frame"):
+            frames.append((state, statics0.active, rays.dens) if observe is None
+                          else observe(state, statics0,
+                                       StepAux(dens_prop=rays.dens)))
     with torch.no_grad():
         for ci in range(run.n_steps // S):
             src = fixed_src
             if use_sort:
-                slabs = (dens, r, m, *frozen)
-                if src:
-                    slabs += (*src[:3], src[3].to(torch.float32))
-                slabs, act, slot = _sort(slabs, act, r, slot)
-                dens, r, m = slabs[:3]
-                frozen = slabs[3:11]
-                if src:
-                    src = fixed_src = (*slabs[11:14], slabs[14].bool())
-                active = act.bool()
+                with profiling.span("msgwam.whole_run.sort"):
+                    slabs = (dens, r, m, *frozen)
+                    if src:
+                        slabs += (*src[:3], src[3].to(torch.float32))
+                    slabs, act, slot = _sort(slabs, act, r, slot)
+                    dens, r, m = slabs[:3]
+                    frozen = slabs[3:11]
+                    if src:
+                        src = fixed_src = (*slabs[11:14], slabs[14].bool())
+                    active = act.bool()
             if keyed_source:
-                t_rays, t_statics = source(source_key)
-                _check_relaunch_template(t_rays, t_statics, rays, statics0)
-                src = _template((t_rays, t_statics), rays.r)
-                if use_sort:
-                    src = tuple(x[slot.long()] for x in src)
+                with profiling.span("msgwam.whole_run.template"):
+                    t_rays, t_statics = source(source_key)
+                    _check_relaunch_template(t_rays, t_statics, rays, statics0)
+                    src = _template((t_rays, t_statics), rays.r)
+                    if use_sort:
+                        src = tuple(x[slot.long()] for x in src)
             life = bounds._replace(src=src if do_relaunch else None) \
                 if do_cull else None
-            wind = None if wind_fn is None else \
-                _wind_table(wind_fn, t0, ci, S, run.dt, n_tab, device)
+            wind = None
+            if wind_fn is not None:
+                with profiling.span("msgwam.whole_run.wind_table"):
+                    wind = _wind_table(wind_fn, t0, ci, S, run.dt, n_tab, device)
             ops_c = ops._replace(frozen=tuple(x.contiguous() for x in frozen),
                                  active=active.contiguous())
             dens, r, m, uv, prop, act = chunk(
                 ops_c, dens.contiguous(), r.contiguous(), m.contiguous(), uv,
                 act.contiguous(), S, life, wind)
-            frame = (dens, r, m, prop, act)
-            if use_sort:
-                frame = _unsort(slot, frame)
-            fd, fr, fm, fp, fa = (x.clone() for x in frame)
-            fstate = to_state(fd, fr, fm, uv)
-            fact = fa.bool() if do_cull else statics0.active
-            frames.append((fstate, fact, fp) if observe is None
-                          else observe(fstate, statics0._replace(active=fact),
-                                       StepAux(dens_prop=fp)))
-    final = (dens, r, m, act)
-    if use_sort:
-        final = _unsort(slot, final)
-    fd, fr, fm, fa = (x.clone() for x in final)
-    final = to_state(fd, fr, fm, uv)
-    statics = statics0._replace(active=fa.bool()) if do_cull else statics0
-    history = tree_map(lambda *xs: torch.stack(xs), *frames)
+            with profiling.span("msgwam.whole_run.frame"):
+                frame = (dens, r, m, prop, act)
+                if use_sort:
+                    frame = _unsort(slot, frame)
+                fd, fr, fm, fp, fa = (x.clone() for x in frame)
+                fstate = to_state(fd, fr, fm, uv)
+                fact = fa.bool() if do_cull else statics0.active
+                frames.append((fstate, fact, fp) if observe is None
+                              else observe(fstate, statics0._replace(active=fact),
+                                           StepAux(dens_prop=fp)))
+    with profiling.span("msgwam.whole_run.history"):
+        final = (dens, r, m, act)
+        if use_sort:
+            final = _unsort(slot, final)
+        fd, fr, fm, fa = (x.clone() for x in final)
+        final = to_state(fd, fr, fm, uv)
+        statics = statics0._replace(active=fa.bool()) if do_cull else statics0
+        history = tree_map(lambda *xs: torch.stack(xs), *frames)
     out = (final, statics, history)
     if return_final_perm:
         out += (slot.long() if use_sort else torch.arange(n, device=device),)
@@ -441,7 +481,7 @@ def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
     cfg = rhs_cuda.apply_champion(cfg, E * n)
     ops = step_cuda.operands(flat_state, flat_statics, bg, cfg, run.dt)
     device = flat_rays.r.device
-    chunk = launch if device.type == "cuda" else step_stream_reference
+    chunk = _launcher(device, E)
     src = None
     if do_relaunch:
         _check_relaunch_template(*sources, rays, statics)

@@ -4,4 +4,4 @@ profiling and streamed history IO.  ``utils/xla.py`` of the JAX package
 
 from .checkpoint import save_checkpoint, load_checkpoint  # noqa: F401
 from .metrics import MetricsLogger  # noqa: F401
-from .profiling import StepTimer, trace  # noqa: F401
+from .profiling import trace  # noqa: F401

@@ -1,54 +1,116 @@
-"""Profiling hooks: step timing and ``torch.profiler`` trace capture, the
-counterparts of :mod:`msgwam_tpu.utils.profiling`."""
+"""Profiling hooks of the port: ``torch.profiler`` trace capture, the
+program's spans, and the window-tier counts of the windowed kernels.
+
+Everything here is off unless a ``torch.profiler`` session records:
+:func:`span` then returns one shared null context, :func:`tier_counter`
+``None``, and the kernels count nothing.  Under a session (:func:`trace`,
+or any ``torch.profiler.profile``):
+
+* :func:`span` is a ``record_function`` range, on the profiler's clock
+  beside the device's rows.  The program's spans are named ``msgwam.*``:
+  the entries ``msgwam.step``, ``msgwam.simulate`` and ``msgwam.whole_run``,
+  their phases ``msgwam.<entry>.<phase>``, and the host side of each kernel
+  launch, ``msgwam.launch.k3`` .. ``msgwam.launch.k7``.
+* K3-K7 count how many of their 256-ray tile windows took the first
+  window, the second tier or the full width (thread 0 of a block, into
+  the block's row of ``TIER_SLOTS`` with integer ``atomicAdd``: K3-K5 one
+  per tile window as it reads it, K6/K7 once per launch from a count in
+  shared memory; the saturation's window is not counted), into one
+  ``int64[TIER_SLOTS, 4]`` buffer per kernel and device (full, first,
+  second, unused); the CPU twins add the same counts to its first row.
+  :func:`counts` sums them, the only read of the device here: call it
+  after the profiled window.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
+
+KERNELS = ("K3", "K4", "K5", "K6", "K7")
+TIERS = ("full", "first", "second")   # a tile's tier: 0, 1, 2
+TIER_SLOTS = 1024    # csrc/ray_physics.cuh kTierSlots: rows of a buffer
+
+_NULL = contextlib.nullcontext()
+# (kernel, device) -> the int64[TIER_SLOTS, 4] window-tier counts
+_TIER_COUNTS = {}
 
 
-def _devices(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree.device
-    elif isinstance(tree, (tuple, list)):
-        for x in tree:
-            yield from _devices(x)
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records on this thread."""
+    return torch._C._autograd._profiler_enabled()
 
 
-class StepTimer:
-    """Wall-clock timer that waits for the device results it is given, so
-    the measured time includes the device's work (a warm-up call can be
-    dropped with :meth:`reset`)."""
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler session
+    records, else one shared ``contextlib.nullcontext()``."""
+    return record_function(name) if recording() else _NULL
 
-    def __init__(self):
-        self.times = []
-        self._t0 = None
 
-    def start(self):
-        self._t0 = time.perf_counter()
+def spanned(name: str):
+    """A decorator: the function's every call in :func:`span` ``name``
+    (with no session, a plain call: no context is entered)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not recording():
+                return fn(*args, **kwargs)
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
-    def stop(self, result=None):
-        """Record the time since :meth:`start`, after every CUDA device that
-        holds a tensor of ``result`` (a tensor or a tree of them) has
-        finished its queued work."""
-        for dev in {d for d in _devices(result) if d.type == "cuda"}:
-            torch.cuda.synchronize(dev)
-        self.times.append(time.perf_counter() - self._t0)
 
-    def reset(self):
-        self.times = []
+def tier_counter(device, kernel: str) -> Optional[torch.Tensor]:
+    """The ``int64[TIER_SLOTS, 4]`` window-tier counts of ``kernel`` (one
+    of :data:`KERNELS`) on ``device`` while a profiler session records
+    (made, zeroed, at its first use and kept after), else ``None``."""
+    if not recording():
+        return None
+    key = (kernel, torch.device(device))
+    buf = _TIER_COUNTS.get(key)
+    if buf is None:
+        buf = _TIER_COUNTS[key] = torch.zeros((TIER_SLOTS, 4),
+                                              dtype=torch.int64, device=device)
+    return buf
 
-    @property
-    def mean(self):
-        return sum(self.times) / max(1, len(self.times))
 
-    @property
-    def best(self):
-        return min(self.times) if self.times else float("nan")
+def add_tiers(buf: Optional[torch.Tensor], tiers: torch.Tensor) -> None:
+    """Add one launch's tile tiers (0 full width, 1 first window, 2 second)
+    to ``buf``, a :func:`tier_counter` buffer or ``None``: the twins'
+    count."""
+    if buf is not None:
+        buf[0, :3] += torch.bincount(tiers.reshape(-1), minlength=3)
+
+
+def counts() -> dict:
+    """``{"K3".."K7": {"full": n, "first": n, "second": n}}``, summed over
+    devices, and each kernel module's ``LAUNCHES`` under ``"launches"``.
+    Reads the device: call it after the profiled window."""
+    from ..ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
+                       step_cuda_stream)
+
+    out = {k: dict.fromkeys(TIERS, 0) for k in KERNELS}
+    for (kernel, _), buf in _TIER_COUNTS.items():
+        for tier, n in zip(TIERS, buf[:, :3].sum(0).tolist()):
+            out[kernel][tier] += n
+    out["launches"] = {
+        m.__name__.rsplit(".", 1)[1]:
+            dict(m.LAUNCHES) if isinstance(m.LAUNCHES, dict) else m.LAUNCHES
+        for m in (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
+                  step_cuda_stream)}
+    return out
+
+
+def reset_counts() -> None:
+    """Zero every window-tier count (the buffers stay)."""
+    for buf in _TIER_COUNTS.values():
+        buf.zero_()
 
 
 @contextlib.contextmanager
@@ -56,7 +118,8 @@ def trace(log_dir: Optional[str] = None):
     """Capture a ``torch.profiler`` trace (host, and the card where there
     is one) around a block and write it to ``log_dir/trace.json`` in the
     Chrome trace format; a no-op without ``log_dir``.  Yields the profiler
-    (``None`` without ``log_dir``)."""
+    (``None`` without ``log_dir``).  The program's spans and window-tier
+    counts are on inside the block."""
     if log_dir is None:
         yield None
         return

@@ -1,6 +1,6 @@
 """The port's utilities against msgwam_tpu.utils: checkpoints (with a
 torch.Generator, and across the two packages), the metrics logger, the
-step timer, the streamed history files (the native writer built with g++
+trace exporter, the streamed history files (the native writer built with g++
 and the Python thread; files of either package read by the other) and the
 plots."""
 
@@ -18,7 +18,7 @@ import msgwam_tpu_torch as mtt
 from msgwam_tpu.utils import checkpoint as jckpt, history_io as jhio
 from msgwam_tpu_torch.utils import checkpoint as tckpt, history_io as thio
 from msgwam_tpu_torch.utils.metrics import MetricsLogger
-from msgwam_tpu_torch.utils.profiling import StepTimer, trace
+from msgwam_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 
@@ -100,16 +100,19 @@ def test_metrics_logger_cadence_and_jsonl(tmp_path, caplog):
     assert len(caplog.records) == 4
 
 
-def test_step_timer_and_trace(tmp_path):
-    t = StepTimer()
-    for _ in range(3):
-        t.start()
-        t.stop((torch.ones(3), [torch.zeros(2)]))
-    assert len(t.times) == 3
-    assert t.best <= t.mean
+def test_trace(tmp_path):
+    """The exported Chrome trace holds the program's span of a ``simulate``
+    call made inside the block."""
+    state, statics = _port_state()
+    cfg = mtt.REFERENCE_RUN_CONFIG
+    bg = mtt.make_background(mtt.GridConfig(), cfg, state.mean.u, state.mean.v,
+                             device="cpu")
     with trace(str(tmp_path)) as prof:
-        torch.ones(8).sum()
-    assert prof is not None and (tmp_path / "trace.json").is_file()
+        mtt.simulate(state, statics, bg, cfg,
+                     mtt.RunConfig(dt=120.0, n_steps=2, save_every=1))
+    assert prof is not None
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "msgwam.simulate" for e in events)
     with trace() as none:
         assert none is None
 
