@@ -17,6 +17,19 @@ offline mode the direct saturation with finite-difference rates (quirk 2
 included) after the third stage.  :func:`resident_plan` mirrors the
 kernel's block plan and on-chip capacity for a given card.
 
+K5 orders its own tiles.  A tile's deposit and windows cost what its rays
+span in cells (``csrc/deposit.cuh``), and rays of different vertical
+wavenumbers part at different group velocities.  So before every launch
+of at least ``ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays
+:func:`tile_order` sorts the caller's slots by the deposit's height cell,
+then by m (inactive and non-finite slots last, ties in the caller's
+order), and gathers of stacked slabs put the state, the frozen terms and
+the mask in that order.  After the launch one scatter puts the frame, with
+``dens_prop``, back in the caller's slots, and the next launch orders that
+again, so the tiles are a function of the state alone.  Shorter launches
+run on the caller's order: there the order's small operations cost more
+than the narrower tiles save.
+
 Not ported from the JAX module: ``build_operators``/``_host_linear_map``
 (matrices that fed the TPU's matrix unit; the kernel takes the shear and
 the flux divergence as differences) and the 131,072-ray cap of the TPU's
@@ -24,14 +37,15 @@ fast memory (tiles past the on-chip capacity stream through device memory,
 so any count that fits the card runs).  The lifecycle (``cfg.cull``,
 ``cfg.relaunch``), a prescribed ``wind_fn`` and ``launch_sort=True`` route
 to the streaming kernel K6 (:mod:`msgwam_tpu_torch.ops.step_cuda_stream`),
-the same CUDA template.
+the same CUDA template, which keeps its own opt-in height sort.
 
 Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``); differentiable through the plain path
 (:mod:`.adjoint`).  For CPU tensors each launch runs
 the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
 kernel launches.  While a profiler records, the whole run is a span
-``msgwam.whole_run`` with its phases, each launch (or twin) a span
+``msgwam.whole_run`` with its phases (each launch's ordering
+``msgwam.whole_run.sort``), each launch (or twin) a span
 ``msgwam.launch.k5``, and the launches add their tile windows' tiers to
 K5's counts (:mod:`..utils.profiling`).
 """
@@ -54,6 +68,13 @@ from . import adjoint, ray_physics, rhs_cuda
 LAUNCHES = 0
 
 MAX_PAD = 256        # csrc/step_resident.cu Fixed<256>: c_pad, at most
+# The smallest launch whose tiles K5 orders (:func:`tile_order`), from Path
+# B days timed on an H100 over launch lengths and populations (PERF.md
+# section 6).  The order costs 0.2-0.5 ms of device time and ~0.5 ms of host
+# time a launch: from 24 steps an input already in order loses at most ~5%
+# to it, and from 1e5 rays the launch hides its host time.
+ORDER_MIN_STEPS = 24
+ORDER_MIN_RAYS = 100_000
 
 
 class Operands(NamedTuple):
@@ -341,6 +362,22 @@ def _offline_saturation(ops: Operands, g, act, dens, r, m, r_prev, m_prev):
     return torch.where((cap < dens * pvol) & act, cap_applied, dens)
 
 
+def tile_order(ops: Operands, r, m, active):
+    """K5's tile order: the slots of active rays with finite r and m by
+    the height cell of their deposit (``trunc(r / dz)``, clamped to
+    ``[0, n_tab - 2]`` as ``deposit.cuh:cell_span`` clamps it), then by m,
+    and every other slot last.  One stable sort of a 64-bit key (the cell
+    above m's float32 bits mapped to their order), so that equal keys keep
+    the callers' slot order and the order is a function of the state."""
+    dz, nzmax = ops.scalars[1], ops.n_tab - 2
+    ok = active & torch.isfinite(r) & torch.isfinite(m)
+    cell = torch.trunc(r * (1.0 / dz)).clamp_(0, nzmax)
+    cell = torch.where(ok, cell, nzmax + 1).to(torch.int64)
+    bits = m.view(torch.int32)
+    m_key = torch.where(ok, bits ^ ((bits >> 31) & 0x7FFFFFFF), 0)
+    return torch.sort((cell << 32) + m_key, stable=True).indices
+
+
 def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
                       source=None, wind_fn=None, t0: float = 0.0,
                       launch_sort=None, observe=None, source_key=None):
@@ -351,11 +388,15 @@ def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
     ``simulate``; without it the history is the default ``(State, active,
     dens_prop)`` stacked per save point.  ``include_t0`` prepends the
     initial state.  The lifecycle (``cfg.cull``/``cfg.relaunch``), a
-    ``wind_fn`` or ``launch_sort=True`` (``None`` is off, as the sort does
-    not pay on the H100) route the call, with ``source``,
-    ``source_key``, ``t0``, ``launch_sort`` and ``observe``, to
+    ``wind_fn`` or ``launch_sort=True`` (K6's height sort; ``None`` is
+    off) route the call, with ``source``, ``source_key``, ``t0``,
+    ``launch_sort`` and ``observe``, to
     :func:`msgwam_tpu_torch.ops.step_cuda_stream.simulate_streaming` (K6);
-    K5 runs the rest.
+    K5 runs the rest.  K5 orders its own tiles before every launch of at
+    least ``ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays, by height
+    cell, then m (:func:`tile_order`); frames, ``dens_prop`` and the final
+    state come back in the caller's slot order, and the final state's
+    frozen fields are the caller's tensors.
 
     K5's run is differentiable in the state, the statics and the
     background: the backward differentiates :func:`msgwam_tpu_torch.
@@ -406,8 +447,10 @@ def check_run(state, cfg, run, name: str) -> None:
 def _simulate_resident_impl(state, statics, bg, cfg, run,
                             include_t0: bool = False, observe=None):
     """``run.n_steps // run.save_every`` launches of ``save_every`` steps
-    each; returns ``(final_state, statics, history)``.  The frozen ray
-    fields (lam, phi, dr, k, l, dm) come from the initial state."""
+    each, on the slots in :func:`tile_order` from ``ORDER_MIN_STEPS`` steps
+    and ``ORDER_MIN_RAYS`` rays; returns ``(final_state, statics,
+    history)`` in the caller's slot order.  The frozen ray fields (lam,
+    phi, dr, k, l, dm) come from the initial state."""
     from ..models.integrate import StepAux
 
     with profiling.span("msgwam.whole_run.prepare"):
@@ -423,21 +466,42 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
             def chunk(*args):
                 with profiling.span("msgwam.launch.k5"):
                     return step_resident_reference(*args, tiers=tiers)
-        carry = (rays.dens.clone(), rays.r.clone(), rays.m.clone(),
-                 torch.stack([mean.u, mean.v]))
+        # the next launch's (dens, r, m), in the caller's slot order; the
+        # kernel updates what it is given in place
+        cur = torch.stack([rays.dens, rays.r, rays.m])
+        uv = torch.stack([mean.u, mean.v])
+        ordered = (run.save_every >= ORDER_MIN_STEPS
+                   and rays.r.shape[0] >= ORDER_MIN_RAYS)
+        if ordered:
+            frozen = torch.stack(ops.frozen)
 
     def to_state(dens, r, m, uv):
-        return State(rays._replace(dens=dens.clone(), r=r.clone(), m=m.clone()),
+        return State(rays._replace(dens=dens, r=r, m=m),
                      MeanState(uv[0].clone(), uv[1].clone()))
 
     frames, props = [], []
     with torch.no_grad():
         for _ in range(run.n_steps // run.save_every):
-            *carry, prop = chunk(ops, *carry, run.save_every)
+            tile_ops, work = ops, cur
+            if ordered:
+                with profiling.span("msgwam.whole_run.sort"):
+                    order = tile_order(ops, cur[1], cur[2], ops.active)
+                    tile_ops = ops._replace(
+                        frozen=tuple(frozen.index_select(1, order)),
+                        active=ops.active.index_select(0, order))
+                    work = cur.index_select(1, order)
+            dens, r, m, uv, prop = chunk(tile_ops, *work, uv, run.save_every)
             with profiling.span("msgwam.whole_run.frame"):
-                frames.append(to_state(*carry))
+                if ordered:       # back to the caller's slots
+                    out = torch.stack([dens, r, m, prop])
+                    out = torch.empty_like(out).index_copy_(1, order, out)
+                    (dens, r, m, prop), cur = out, out[:3]
+                else:             # a copy for the next launch to update
+                    cur = torch.stack([dens, r, m])
+                frames.append(to_state(dens, r, m, uv))
                 props.append(prop)
 
+    final = frames[-1] if frames else to_state(*cur, uv)
     if observe is not None:
         with profiling.span("msgwam.whole_run.frame"):
             hist = [observe(s, statics, StepAux(dens_prop=p))
@@ -446,13 +510,11 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
                 hist.insert(0, observe(state, statics,
                                        StepAux(dens_prop=rays.dens)))
         with profiling.span("msgwam.whole_run.history"):
-            return (to_state(*carry), statics,
-                    tree_map(lambda *xs: torch.stack(xs), *hist))
+            return final, statics, tree_map(lambda *xs: torch.stack(xs), *hist)
     with profiling.span("msgwam.whole_run.history"):
         if include_t0:
             frames.insert(0, state)
             props.insert(0, rays.dens)
         history_state = tree_map(lambda *xs: torch.stack(xs), *frames)
         active = torch.stack([statics.active] * len(frames))
-        return (to_state(*carry), statics,
-                (history_state, active, torch.stack(props)))
+        return final, statics, (history_state, active, torch.stack(props))

@@ -8,11 +8,11 @@ from collections import Counter
 
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch.diagnostics import window_fallback_stats
-from msgwam_tpu_torch.ops import ray_physics, rhs_cuda, rhs_cuda_windowed
+from msgwam_tpu_torch.ops import ray_physics, rhs_cuda, rhs_cuda_windowed, step_cuda
 from msgwam_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -97,6 +97,44 @@ def test_whole_run_spans_nest_every_launch(kernel):
     assert all(_inside(e, outer) for e in spans)
     assert sum(profiling.counts()[kernel].values()) == \
         6 * 3 * (N // ray_physics.TILE)
+
+
+def test_k5_orders_its_tiles_in_a_sort_span_a_launch(monkeypatch):
+    """K5's run: one ``msgwam.whole_run.sort`` a launch, before the launch
+    inside the whole run, while a profiler records; without a session no
+    range is made at all; launches of fewer steps than ``ORDER_MIN_STEPS``
+    or fewer rays than ``ORDER_MIN_RAYS`` are not ordered."""
+    cfg, bg, state, statics = _setup()
+    run = mtt.RunConfig(dt=120.0, n_steps=6, save_every=2)
+    for steps, rays in ((3, N), (2, N + 1)):
+        monkeypatch.setattr(step_cuda, "ORDER_MIN_STEPS", steps)
+        monkeypatch.setattr(step_cuda, "ORDER_MIN_RAYS", rays)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            mtt.simulate_resident(state, statics, bg, cfg, run)
+        names = Counter(e.name for e in _spans(prof))
+        assert names["msgwam.whole_run.sort"] == 0
+        assert names["msgwam.launch.k5"] == 3
+    monkeypatch.setattr(step_cuda, "ORDER_MIN_STEPS", 2)
+    monkeypatch.setattr(step_cuda, "ORDER_MIN_RAYS", N)
+    made = []
+
+    def counted(name):
+        made.append(name)
+        return record_function(name)
+
+    monkeypatch.setattr(profiling, "record_function", counted)
+    mtt.simulate_resident(state, statics, bg, cfg, run)
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mtt.simulate_resident(state, statics, bg, cfg, run)
+    assert Counter(made)["msgwam.whole_run.sort"] == 3
+    spans = sorted(_spans(prof), key=lambda e: e.time_range.start)
+    sorts = [e for e in spans if e.name == "msgwam.whole_run.sort"]
+    launches = [e for e in spans if e.name == "msgwam.launch.k5"]
+    outer = next(e for e in spans if e.name == "msgwam.whole_run")
+    assert len(sorts) == len(launches) == 3
+    for s_, l_ in zip(sorts, launches):
+        assert _inside(s_, outer) and s_.time_range.end <= l_.time_range.start
 
 
 def test_path_a_step_spans_three_k4_launches():
