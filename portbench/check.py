@@ -29,6 +29,13 @@ the seeded inputs alone; and in a cell whose limits say
 ``"profiles": "first_launch"`` the flux and wind gaps are taken only of
 the answers that start from the seeded inputs, ``rays_off`` of all.  The
 control is the same reference computed in bfloat16, judged the same way.
+
+In a member-stacked configuration (``"members": E``) each member of an
+answer is a column of its own, judged as above: its own rays, wind and
+flux, the reference advanced from the program's state of that member at
+the answer's start.  Each number of the answer is the worst over its
+members, so an answer in which two members' states are exchanged reads
+as wrong as a single column that is wrong.
 """
 
 from __future__ import annotations
@@ -78,6 +85,21 @@ def run_item(item: Item, s: Setup, dtype):
                            item.n_steps, item.step0, wind, template)
 
 
+def columns(item: Item, s: Setup) -> list:
+    """``[(item, setup)]``: the single columns of an answer, one for each
+    member of a member-stacked configuration (its rays, its wind, its
+    frozen fields and its initial wind), or the answer itself."""
+    if not s.members:
+        return [(item, s)]
+    cut = lambda xs, e: tuple(x[e] for x in xs)
+    return [(Item(item.step0, item.n_steps, cut(item.rays_in, e),
+                  cut(item.wind_in, e), cut(item.rays_out, e),
+                  cut(item.wind_out, e)),
+             s._replace(pop=inputs.Population(*cut(s.pop, e)), u0=s.u0[e],
+                        v0=s.v0[e], members=0))
+            for e in range(s.members)]
+
+
 def rays_off(got: ref.Rays, want: ref.Rays) -> float:
     """The share of ray slots that are off: active on one side only, or
     with a density, height or wavenumber that differs from the reference's
@@ -111,23 +133,24 @@ def gaps(item: Item, s: Setup, got, want, profiles: bool = True) -> dict:
 
 
 def judge(items, s: Setup, control: bool = False, profiles: str = "all") -> dict:
-    """The widest of each judged number over ``items``: the program's
-    answers, or with ``control`` the control's answers to the same
-    inputs.  ``profiles="first_launch"`` takes the flux and wind gaps of
-    the answers that start a request's cycle (from the seeded inputs)
-    only, and ``rays_off`` of every answer."""
+    """The widest of each judged number over ``items`` and their members'
+    columns: the program's answers, or with ``control`` the control's
+    answers to the same inputs.  ``profiles="first_launch"`` takes the
+    flux and wind gaps of the answers that start a request's cycle (from
+    the seeded inputs) only, and ``rays_off`` of every answer."""
     worst = {}
     for item in items:
-        want_rays, want_u, _ = run_item(item, s, torch.float64)
-        if control:
-            c_rays, c_u, _ = run_item(item, s, CONTROL_DTYPE)
-            got = (c_rays, c_u)
-        else:
-            got = (item.rays_out, item.wind_out[0])
         whole = profiles == "all" or item.step0 == 0
-        for k, v in gaps(item, s, got, (want_rays, want_u), whole).items():
-            v = float("inf") if v != v else v     # a NaN reads worst
-            worst[k] = max(worst.get(k, v), v)
+        for col, cs in columns(item, s):
+            want_rays, want_u, _ = run_item(col, cs, torch.float64)
+            if control:
+                c_rays, c_u, _ = run_item(col, cs, CONTROL_DTYPE)
+                got = (c_rays, c_u)
+            else:
+                got = (col.rays_out, col.wind_out[0])
+            for k, v in gaps(col, cs, got, (want_rays, want_u), whole).items():
+                v = float("inf") if v != v else v     # a NaN reads worst
+                worst[k] = max(worst.get(k, v), v)
     return worst
 
 

@@ -72,13 +72,15 @@ def card(device) -> dict:
 
 def covered_cells(s, rays_list) -> float:
     """Mean covered cells per active ray over ``rays_list`` of
-    ``(r, active)``."""
+    ``(r, active)``, each flattened over the members of a member-stacked
+    configuration."""
     from .roofline import covered_cells as cc
 
     dz = float(s.bg.centers[1] - s.bg.centers[0])
     n = s.bg.centers.shape[0]
-    dr = s.state0.rays.dr
-    vals = [cc(r.double(), dr.double(), act, dz, n) for r, act in rays_list]
+    dr = s.state0.rays.dr.double().flatten()
+    vals = [cc(r.double().flatten(), dr, act.flatten(), dz, n)
+            for r, act in rays_list]
     return sum(vals) / len(vals)
 
 
@@ -120,7 +122,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
         durations, hosts, items, window_s = serve(driver, seconds)
         n_req = len(durations)
         ctx = SimpleNamespace(
-            cell=cell, setup=s, driver=driver, slots=int(s.state0.rays.r.shape[0]),
+            cell=cell, setup=s, driver=driver, slots=s.state0.rays.r.numel(),
             setup_s=t_first - t_process, window_s=window_s, durations=durations,
             requests=n_req, window_steps=n_req * driver.steps, trace=None)
         breakdown = None

@@ -13,7 +13,7 @@ from portbench import calibrate, check, manifest
 from portbench.tests.conftest import REPO
 
 CELLS = ["ref_1e6.days", "ref_1e6.per_step", "tidal_1e5.days",
-         "tidal_1e5.per_step"]
+         "tidal_1e5.per_step", "ens8_125k.days"]
 
 
 @pytest.mark.parametrize("cell", CELLS)

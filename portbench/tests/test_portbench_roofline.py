@@ -56,13 +56,14 @@ def test_busy_gaps_and_kernel_gaps():
                                  ["aten::copy_", pytest.approx(30e-6)]]
 
 
-def ctx_for(kind, lifecycle, events, wall_s, steps, slots=1_000_000, cells=2.0):
+def ctx_for(kind, lifecycle, events, wall_s, steps, slots=1_000_000, cells=2.0,
+            members=0):
     driver = SimpleNamespace(kind=kind, lifecycle=lifecycle, save_every=72,
                              steps=1)
     conf = {"model": {"prognostic_mean": not lifecycle}}
     return SimpleNamespace(driver=driver, trace=Window(events, [], wall_s, 0),
                            trace_steps=steps, slots=slots, cells=cells,
-                           setup=SimpleNamespace(conf=conf))
+                           setup=SimpleNamespace(conf=conf, members=members))
 
 
 def test_roofline_readers_read_the_kernels_time():
@@ -95,3 +96,28 @@ def test_readers_find_nothing_without_a_trace():
     for name in ("idle_share", "k5_roofline", "k6_roofline", "k4_roofline",
                  "step_mfu", "host_gap_ms.day", "device_ops_per_step.step"):
         assert manifest.reader(name)(ctx) is None
+
+
+@pytest.mark.parametrize("slots,cells,steps_per_launch", [
+    (1_000_000, 2.0, 72), (1_000_000, 5.5, 72), (200_000, 3.0, 10)])
+def test_k7_reader_reads_the_stream_kernel(slots, cells, steps_per_launch):
+    # 144 traced steps of K7 in 20 ms of its device time, beside K5's
+    # instantiation and a copy, which it does not count
+    k7 = "void msgwam::step_resident_kernel<true, 128>(msgwam::ResidentArgs)"
+    k5 = "void msgwam::step_resident_kernel<false, 128>(msgwam::ResidentArgs)"
+    evs = [ev(k7, 0, 12_000), ev("Memcpy DtoH", 12_000, 12_100),
+           ev(k7, 12_200, 20_200), ev(k5, 20_300, 29_000)]
+    ctx = ctx_for("whole_run", False, evs, 40e-3, 144, slots=slots,
+                  cells=cells, members=8)
+    ctx.driver.save_every = steps_per_launch
+    bound = 144 * max(57 * slots / steps_per_launch / 3.35e12,
+                      3 * slots * (120 + 12 + 11 * cells) / 67e12)
+    assert manifest.reader("k7_roofline")(ctx) == pytest.approx(
+        100 * bound / 20e-3)
+    # nothing to read without members, or without K7 in the window
+    ctx.setup.members = 0
+    assert manifest.reader("k7_roofline")(ctx) is None
+    ctx = ctx_for("whole_run", False, evs[3:], 40e-3, 144, members=8)
+    assert manifest.reader("k7_roofline")(ctx) is None
+    ctx = ctx_for("whole_run", False, [], 1.0, 72, members=8)
+    assert manifest.reader("k7_roofline")(ctx) is None

@@ -18,7 +18,18 @@ Two kinds of mix (a traffic file's ``kind``):
 
 The configuration decides the rest: an imposed wind (the tidal shear,
 made here for every step) and a relaunch template (the launch population
-itself).  The program sees only the inputs made here.
+itself).  A configuration that sets ``"members": E`` is an ensemble of E
+independent columns: its ``n_ray`` rays are one seeded draw, split
+member-major into ``(E, n_ray // E)``, so each member is its own
+stochastic draw, and each member starts from the sine jet.  A
+``whole_run`` request on it serves the same day as ``steps_per_request //
+save_every`` calls of the port's ensemble entry, ``parallel.
+ensemble_simulate(..., backend="mega")`` (one launch of K7 each), with
+``n_steps = save_every``, each from the member states the last returned:
+that entry takes no ``observe``, so a caller that keeps every member's
+rays at every frame calls it once a frame.  The day's member wind frames,
+``(2, frames, E, n_cell)``, are copied to the host when it ends.  The
+program sees only the inputs made here.
 """
 
 from __future__ import annotations
@@ -53,10 +64,13 @@ class Setup(NamedTuple):
     pop: inputs.Population  # the seeded rays, float32 values in float64
     u0: torch.Tensor       # the initial wind, float32, on the device
     v0: torch.Tensor
+    members: int = 0       # E of a member-stacked configuration, else 0
 
 
 def setup(conf: dict, seed: int, device) -> Setup:
-    """The program's inputs for configuration ``conf`` from ``seed``."""
+    """The program's inputs for configuration ``conf`` from ``seed``: with
+    ``"members": E``, every per-ray field ``(E, n_ray // E)`` and the wind
+    ``(E, n_cell)``."""
     import msgwam_tpu_torch as prog
 
     model = conf["model"]
@@ -71,6 +85,12 @@ def setup(conf: dict, seed: int, device) -> Setup:
     # the program's float32 values, which the reference reads in float64
     pop = inputs.Population(*(x.to(torch.float32).to(torch.float64)
                               for x in inputs.population(conf, seed, device)))
+    members = int(conf.get("members", 0))
+    if members:
+        if pop.r.shape[0] % members:
+            raise ValueError(f"{pop.r.shape[0]} rays do not split into "
+                             f"{members} members")
+        pop = inputs.Population(*(x.reshape(members, -1) for x in pop))
     f32 = lambda x: x.to(torch.float32)
     rays = prog.RayState(dens=f32(pop.dens), lam=f32(pop.lam), phi=f32(pop.phi),
                          r=f32(pop.r), dr=f32(pop.dr), k=f32(pop.k), l=f32(pop.l),
@@ -79,6 +99,8 @@ def setup(conf: dict, seed: int, device) -> Setup:
     statics = prog.RayStatics(dkk=f32(pop.dkk), dll=f32(pop.dll),
                               rr_mm_area=f32(pop.area), active=active)
     u0, v0 = u0.to(device), v0.to(device)
+    if members:
+        u0, v0 = torch.stack([u0] * members), torch.stack([v0] * members)
     state = prog.State(rays, prog.MeanState(u0.clone(), v0.clone()))
     source = (rays, statics) if model["relaunch"] else None
     wind_fn = None
@@ -89,7 +111,8 @@ def setup(conf: dict, seed: int, device) -> Setup:
             t = t.to(device=zc.device, dtype=zc.dtype)
             u = inputs.tidal(zc, t, model, conf["wind"])
             return u, torch.zeros_like(u)
-    return Setup(conf, cfg, bg, state, statics, source, wind_fn, pop, u0, v0)
+    return Setup(conf, cfg, bg, state, statics, source, wind_fn, pop, u0, v0,
+                 members)
 
 
 class Item(NamedTuple):
@@ -141,6 +164,9 @@ class Driver:
                                   save_every=self.save_every)
         self.lifecycle = s.source is not None or s.wind_fn is not None
         self.n_launches = self.steps // self.save_every
+        if s.members and self.kind != "whole_run":
+            raise ValueError("a member-stacked configuration serves whole_run "
+                             "mixes only")
         self.picked = sample(seed, traffic["check"], self.n_launches)
         self.prog = prog
         self.reset()
@@ -160,9 +186,12 @@ class Driver:
     def _whole_run(self, launches) -> Answer:
         s = self.s
         with record_function("portbench.request"):
-            _, _, hist = self.prog.simulate_resident(
-                s.state0, s.statics0, s.bg, s.cfg, self.run, observe=_frame,
-                source=s.source, wind_fn=s.wind_fn)
+            if s.members:
+                hist = self._ensemble_day()
+            else:
+                _, _, hist = self.prog.simulate_resident(
+                    s.state0, s.statics0, s.bg, s.cfg, self.run, observe=_frame,
+                    source=s.source, wind_fn=s.wind_fn)
         with record_function("portbench.host_read"):
             host = torch.stack(hist[:2]).cpu()
         self.last = hist
@@ -179,6 +208,22 @@ class Driver:
                               tuple(h[f] for h in hist[2:]),
                               (host[0, f], host[1, f])))
         return Answer(host, items)
+
+    def _ensemble_day(self) -> tuple:
+        """A day of a member-stacked configuration: one call of the
+        ensemble entry a launch, each from the member states the last
+        returned; :func:`_frame` of each, stacked frame-leading."""
+        s = self.s
+        launch = self.prog.RunConfig(dt=self.dt, n_steps=self.save_every,
+                                     save_every=self.save_every)
+        state, statics, frames = s.state0, s.statics0, []
+        for f in range(self.n_launches):
+            state, statics, _ = self.prog.parallel.ensemble_simulate(
+                state, statics, s.bg, s.cfg, launch, backend="mega",
+                sources=s.source, wind_fn=s.wind_fn,
+                t0=f * self.save_every * self.dt)
+            frames.append(_frame(state, statics, None))
+        return tuple(torch.stack(x) for x in zip(*frames))
 
     def _stepwise(self, i: int, launches) -> Answer:
         s = self.s
