@@ -267,7 +267,9 @@ STREAM_STEPS = 72      # steps per K6/K7 launch in the day, as K5's
 M_MAX_D = 2.0 * math.pi / 300.0    # configs[3] (benchmarks/run.py:407)
 N_MEMBERS, N_PER_MEMBER = 8, 125_000   # configs[4] (benchmarks/run.py:425-428)
 TIMED_STEPS = 10       # steps per timed K5-K7 launch (device time per step)
-N_ABOVE = 2_000_000    # a K5 run past the on-chip capacity (1,081,344 rays)
+N_ABOVE = (2_000_000, 10_000_000)   # K5 runs past the on-chip capacity
+# (1,081,344 rays); at 1e7 a block's tiles past its 64th keep their windows
+# in the device-memory scratch
 
 # The device kernels of the port (csrc/*.cu), as the profiler names them:
 # K1, K2-K4, K5-K7.  A profiled window holds as many as the launch
@@ -1207,24 +1209,31 @@ def phase_path_b(device, smi: str) -> dict:
                 ops, *init, 1), iters=3)
         del setup, c, b, s, st, ops, init, spread
 
-    # past the on-chip capacity: tiles streamed through device memory
-    cfg2, bg2, state2, statics2 = bench_setup(N_ABOVE, device, window_cells=-1)
-    ops2 = step_cuda.operands(state2, statics2, bg2, cfg2, DT)
-    init2 = [state2.rays.dens, state2.rays.r, state2.rays.m,
-             torch.stack([state2.mean.u, state2.mean.v])]
-    plan2 = step_cuda.device_plan(N_ABOVE, 1, ops2, False)
-    got2 = step_cuda.launch(ops2, *[x.clone() for x in init2], 3)
-    twin2 = step_cuda.step_resident_reference(ops2, *init2, 3)
-    above = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m", "u"),
-                                             (*twin2[:3], twin2[3][0]),
-                                             (*got2[:3], got2[3][0]))}
-    log(f"[7]   K5 at {N_ABOVE} rays (tiles on chip {plan2.on_chip_share:.4f}), "
-        f"3 steps vs twin: {fmt(above)}")
-    for k, v in above.items():
-        check(v < RESIDENT_BAR, f"K5 above the on-chip capacity, {k}")
-    above_abs = max(float((w.double() - g.double()).abs().max())
-                    for w, g in zip(twin2[:3], got2[:3]))
-    del cfg2, bg2, state2, statics2, ops2, init2, got2, twin2
+    # past the on-chip capacity: tiles streamed through device memory, and
+    # at 1e7 tile windows in the device-memory scratch
+    above, above_abs = {}, 0.0
+    for n in N_ABOVE:
+        cfg2, bg2, state2, statics2 = bench_setup(n, device, window_cells=-1)
+        ops2 = step_cuda.operands(state2, statics2, bg2, cfg2, DT)
+        init2 = [state2.rays.dens, state2.rays.r, state2.rays.m,
+                 torch.stack([state2.mean.u, state2.mean.v])]
+        plan2 = step_cuda.device_plan(n, 1, ops2, False)
+        got2 = step_cuda.launch(ops2, *[x.clone() for x in init2], 3)
+        twin2 = step_cuda.step_resident_reference(ops2, *init2, 3)
+        errs = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m", "u"),
+                                                (*twin2[:3], twin2[3][0]),
+                                                (*got2[:3], got2[3][0]))}
+        log(f"[7]   K5 at {n} rays (tiles on chip {plan2.on_chip_share:.4f}, "
+            f"{plan2.scratch_windows} tile windows in the scratch), 3 steps vs "
+            f"twin: {fmt(errs)}")
+        for k, v in errs.items():
+            check(v < RESIDENT_BAR, f"K5 above the on-chip capacity at {n}, {k}")
+        above_abs = max(above_abs, *(float((w.double() - g.double()).abs().max())
+                                     for w, g in zip(twin2[:3], got2[:3])))
+        above[n] = {"errs": errs, "on_chip_share": plan2.on_chip_share,
+                    "scratch_windows": plan2.scratch_windows}
+        del cfg2, bg2, state2, statics2, ops2, init2, got2, twin2
+        torch.cuda.empty_cache()
 
     # 1e6 rays through simulate_resident
     cfg6, bg6, state6, statics6 = bench_setup(1_000_000, device, window_cells=-1)
@@ -1240,8 +1249,7 @@ def phase_path_b(device, smi: str) -> dict:
             "max_abs_err": max(res9["online"]["max_abs_err"], above_abs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "per_step_ms": per_step, "plans": plans,
-            "above_capacity": {"n": N_ABOVE, "errs": above,
-                               "on_chip_share": plan2.on_chip_share},
+            "above_capacity": above,
             "ms_per_step_1e6": wall6 * 50, "ray_steps_per_s_1e6": 1e6 * 20 / wall6}
 
 

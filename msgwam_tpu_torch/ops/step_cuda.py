@@ -46,8 +46,9 @@ the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
 kernel launches.  While a profiler records, the whole run is a span
 ``msgwam.whole_run`` with its phases (each launch's ordering
 ``msgwam.whole_run.sort``), each launch (or twin) a span
-``msgwam.launch.k5``, and the launches add their tile windows' tiers to
-K5's counts (:mod:`..utils.profiling`).
+``msgwam.launch.k5``, and the launches add their tile windows' tiers and
+their tiles' placement (on chip, streamed, windows in the scratch) to K5's
+counts (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -145,6 +146,27 @@ class Plan(NamedTuple):
     def on_chip_share(self) -> float:
         return self.on_chip_tiles / self.tiles
 
+    @property
+    def scratch_windows(self) -> int:
+        """Tile windows per member and stage in the device-memory window
+        scratch: a tile block's tiles past its first ``WIN_SHARED``."""
+        q, rem = divmod(self.tiles, self.tile_blocks)
+        return (rem * max(0, q + 1 - WIN_SHARED)
+                + (self.tile_blocks - rem) * max(0, q - WIN_SHARED))
+
+
+def count_placement(kernel: str, plan: Plan, n_steps: int,
+                    n_members: int = 1) -> None:
+    """Add a launch's tile-stages on chip and streamed, and its tile
+    windows in the window scratch, to ``kernel``'s placement counts while
+    a profiler records (:func:`..utils.profiling.add_placement`): the
+    plan's per-member tiles times ``n_steps``, three stages and
+    ``n_members``.  Host arithmetic only."""
+    stages = 3 * n_steps * n_members
+    profiling.add_placement(kernel, stages * plan.on_chip_tiles,
+                            stages * (plan.tiles - plan.on_chip_tiles),
+                            stages * plan.scratch_windows)
+
 
 def fixed_smem(c_pad: int) -> int:
     """The kernel's static shared memory (``Fixed<kPad>``): flux sums,
@@ -185,6 +207,13 @@ def resident_plan(n_per: int, n_members: int = 1, c_pad: int = 128,
     on_chip = sum(min(-(-(tiles - r) // n_tb), slots + 1) for r in range(n_tb))
     smem = INV_BYTES if tpb == 1 else slots * slot_bytes(online)
     return Plan(bpm, n_tb, tpb, slots, smem, on_chip, tiles)
+
+
+def mirror_plan(n_per: int, n_members: int, ops: "Operands") -> Plan:
+    """:func:`resident_plan` for a launch's operands: the plan the CPU
+    twins count by."""
+    return resident_plan(n_per, n_members, ops.c_pad, ops.n_tab - 1,
+                         bool(ops.online), bool(ops.prognostic))
 
 
 def device_plan(n_per: int, n_members: int, ops: "Operands",
@@ -257,6 +286,7 @@ def launch(ops: Operands, dens, r, m, uv, n_steps: int, tiers=None):
                 torch.cuda.current_stream(device).cuda_stream,
             )
             _build.check(err, "msgwam_step_resident")
+    count_placement("K5", plan, n_steps)
     LAUNCHES += 1
     return dens, r, m, uv, dens.clone() if ops.online else dens_prop
 
@@ -463,9 +493,12 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
         if rays.r.device.type == "cuda":
             chunk = functools.partial(launch, tiers=tiers)
         else:
-            def chunk(*args):
+            def chunk(ops, dens, r, m, uv, n_steps):
                 with profiling.span("msgwam.launch.k5"):
-                    return step_resident_reference(*args, tiers=tiers)
+                    out = step_resident_reference(ops, dens, r, m, uv, n_steps,
+                                                  tiers=tiers)
+                count_placement("K5", mirror_plan(dens.shape[0], 1, ops), n_steps)
+                return out
         # the next launch's (dens, r, m), in the caller's slot order; the
         # kernel updates what it is given in place
         cur = torch.stack([rays.dens, rays.r, rays.m])

@@ -46,7 +46,8 @@ tensors each launch runs the plain twin :func:`step_stream_reference`;
 While a profiler records, :func:`simulate_streaming` is a span
 ``msgwam.whole_run`` with its phases, each launch (or twin) a span
 ``msgwam.launch.k6`` or ``k7``, and the launches add their tile windows'
-tiers to K6's or K7's counts (:mod:`..utils.profiling`).
+tiers and their tiles' placement to K6's or K7's counts
+(:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -119,7 +120,9 @@ def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
                 torch.cuda.current_stream(device).cuda_stream,
             )
             _build.check(err, "msgwam_step_stream")
-    LAUNCHES["K7" if n_members > 1 else "K6"] += 1
+    kernel = "K7" if n_members > 1 else "K6"
+    step_cuda.count_placement(kernel, plan, n_steps, n_members)
+    LAUNCHES[kernel] += 1
     if dens_prop is None:
         dens_prop = dens.clone()
     return dens, r, m, uv, dens_prop, act
@@ -161,14 +164,19 @@ def _launch_span(n_members: int) -> str:
 def _launcher(device, n_members: int):
     """The launch of K6 (K7 with ``n_members > 1``) on ``device``, or for
     CPU tensors its twin in the launch's span; either adds to the
-    kernel's tier counts while a profiler records."""
-    tiers = profiling.tier_counter(device, "K7" if n_members > 1 else "K6")
+    kernel's tier and placement counts while a profiler records."""
+    kernel = "K7" if n_members > 1 else "K6"
+    tiers = profiling.tier_counter(device, kernel)
     if device.type == "cuda":
         return functools.partial(launch, tiers=tiers)
 
-    def twin(*args, **kwargs):
+    def twin(ops, dens, r, m, uv, act, n_steps, *args, **kwargs):
         with profiling.span(_launch_span(n_members)):
-            return step_stream_reference(*args, tiers=tiers, **kwargs)
+            out = step_stream_reference(ops, dens, r, m, uv, act, n_steps, *args,
+                                        tiers=tiers, **kwargs)
+        plan = step_cuda.mirror_plan(dens.shape[0] // n_members, n_members, ops)
+        step_cuda.count_placement(kernel, plan, n_steps, n_members)
+        return out
 
     return twin
 

@@ -20,6 +20,12 @@ or any ``torch.profiler.profile``):
   second, unused); the CPU twins add the same counts to its first row.
   :func:`counts` sums them, the only read of the device here: call it
   after the profiled window.
+* K5-K7 count where their tiles' state lives, from each launch's block
+  plan (host integers, no device work): tile-stages whose state stays on
+  chip (registers or shared memory), tile-stages whose state is streamed
+  through device memory, and tile windows kept in the device-memory window
+  scratch (a block's tiles past its first ``kWinShared``), each times the
+  launch's steps, its three stages and its members.
 """
 
 from __future__ import annotations
@@ -35,10 +41,14 @@ from torch.profiler import record_function
 KERNELS = ("K3", "K4", "K5", "K6", "K7")
 TIERS = ("full", "first", "second")   # a tile's tier: 0, 1, 2
 TIER_SLOTS = 1024    # csrc/ray_physics.cuh kTierSlots: rows of a buffer
+WHOLE_RUN = ("K5", "K6", "K7")
+PLACES = ("on_chip", "streamed", "win_scratch")
 
 _NULL = contextlib.nullcontext()
 # (kernel, device) -> the int64[TIER_SLOTS, 4] window-tier counts
 _TIER_COUNTS = {}
+# kernel -> {place: tile-stages (windows for "win_scratch")}, host integers
+_PLACEMENT = {k: dict.fromkeys(PLACES, 0) for k in WHOLE_RUN}
 
 
 def recording() -> bool:
@@ -88,10 +98,23 @@ def add_tiers(buf: Optional[torch.Tensor], tiers: torch.Tensor) -> None:
         buf[0, :3] += torch.bincount(tiers.reshape(-1), minlength=3)
 
 
+def add_placement(kernel: str, on_chip: int, streamed: int,
+                  win_scratch: int) -> None:
+    """Add one launch's tile-stages on chip and streamed and its tile
+    windows in the device-memory scratch to ``kernel``'s counts (one of
+    :data:`WHOLE_RUN`) while a profiler session records; else nothing."""
+    if recording():
+        got = _PLACEMENT[kernel]
+        for place, n in zip(PLACES, (on_chip, streamed, win_scratch)):
+            got[place] += int(n)
+
+
 def counts() -> dict:
     """``{"K3".."K7": {"full": n, "first": n, "second": n}}``, summed over
-    devices, and each kernel module's ``LAUNCHES`` under ``"launches"``.
-    Reads the device: call it after the profiled window."""
+    devices, each kernel module's ``LAUNCHES`` under ``"launches"``, and
+    K5-K7's tile placement under ``"placement"``: ``{"K5".."K7":
+    {"on_chip": n, "streamed": n, "win_scratch": n}}``.  Reads the device:
+    call it after the profiled window."""
     from ..ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
                        step_cuda_stream)
 
@@ -104,13 +127,16 @@ def counts() -> dict:
             dict(m.LAUNCHES) if isinstance(m.LAUNCHES, dict) else m.LAUNCHES
         for m in (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
                   step_cuda_stream)}
+    out["placement"] = {k: dict(v) for k, v in _PLACEMENT.items()}
     return out
 
 
 def reset_counts() -> None:
-    """Zero every window-tier count (the buffers stay)."""
+    """Zero every window-tier and placement count (the buffers stay)."""
     for buf in _TIER_COUNTS.values():
         buf.zero_()
+    for got in _PLACEMENT.values():
+        got.update(dict.fromkeys(PLACES, 0))
 
 
 @contextlib.contextmanager

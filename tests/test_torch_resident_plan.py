@@ -124,7 +124,7 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1_000_000, 1_200_000])
+@pytest.mark.parametrize("n", [1_000_000, 1_200_000, 10_000_000])
 def test_k5_on_both_sides_of_the_capacity_on_gpu(cuda_device, n):
     cfg, bg, state, statics = _bench(n, cuda_device)
     ops = step_cuda.operands(state, statics, bg, cfg, 120.0)
