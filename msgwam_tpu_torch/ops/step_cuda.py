@@ -28,7 +28,8 @@ the mask in that order.  After the launch one scatter puts the frame, with
 ``dens_prop``, back in the caller's slots, and the next launch orders that
 again, so the tiles are a function of the state alone.  Shorter launches
 run on the caller's order: there the order's small operations cost more
-than the narrower tiles save.
+than the narrower tiles save.  K7 orders each ensemble member's slots by
+the same key and cut (``step_cuda_stream.member_tile_order``).
 
 Not ported from the JAX module: ``build_operators``/``_host_linear_map``
 (matrices that fed the TPU's matrix unit; the kernel takes the shear and
@@ -524,6 +525,7 @@ def _simulate_resident_impl(state, statics, bg, cfg, run,
                         active=ops.active.index_select(0, order))
                     work = cur.index_select(1, order)
             dens, r, m, uv, prop = chunk(tile_ops, *work, uv, run.save_every)
+            profiling.add_order("K5", ordered)
             with profiling.span("msgwam.whole_run.frame"):
                 if ordered:       # back to the caller's slots
                     out = torch.stack([dens, r, m, prop])

@@ -18,7 +18,9 @@ table (:func:`_wind_table`), keyed templates drawn once per launch, and
 the launch sort, a stable ``torch.sort`` of the heights (inactive slots
 last) and one gather of all per-ray arrays stacked, with the slot ids
 riding along, so that history frames and the final state come back in the
-caller's slot order.
+caller's slot order.  K7 orders each member's tiles as K5 orders its own
+(:func:`member_tile_order`), from the same launch length and ray count
+on, and puts the state back in the caller's slots after every launch.
 
 Not ported, and why:
 
@@ -45,9 +47,10 @@ tensors each launch runs the plain twin :func:`step_stream_reference`;
 ``LAUNCHES`` counts kernel launches, K6's (one member) and K7's apart.
 While a profiler records, :func:`simulate_streaming` is a span
 ``msgwam.whole_run`` with its phases, each launch (or twin) a span
-``msgwam.launch.k6`` or ``k7``, and the launches add their tile windows'
-tiers and their tiles' placement to K6's or K7's counts
-(:mod:`..utils.profiling`).
+``msgwam.launch.k6`` or ``k7``, K7's ordering and restore spans
+``msgwam.whole_run.sort`` and ``.frame``, and the launches add their tile
+windows' tiers and their tiles' placement to K6's or K7's counts, and K7
+its ordered launches (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -412,7 +415,9 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
     is one function of time shared by the members or a sequence of one
     per member.  With ``cfg.relaunch``, ``sources`` is a stacked ``(RayState,
     RayStatics)`` template pair; a callable source raises, as in the JAX
-    package.  Float32, ``hprop=False``, online saturation.
+    package.  Float32, ``hprop=False``, online saturation.  Launches of at
+    least ``step_cuda.ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays in
+    all run on each member's tiles in K5's order (:func:`_ensemble_kernel`).
 
     Returns ``(final_states, statics, mean_history)``: the final states with
     the member axis back, and the mean wind after every launch as a
@@ -476,9 +481,26 @@ def _ensemble_plain(states, statics, bg, cfg, run, sources, wind_fn, t0):
     return tree_map(stack, *finals), statics, mean_hist
 
 
+def member_tile_order(ops, r, m, active, n_members: int):
+    """K7's tile order: :func:`step_cuda.tile_order` within each member's
+    slot range ``[e n, (e + 1) n)`` of the flat member-major ``r``, ``m``
+    and ``active``, as flat slot indices, so that K7's blocks still find
+    each member's rays in its own range."""
+    n = r.shape[0] // n_members
+    order = step_cuda.tile_order(ops, r.view(n_members, n), m.view(n_members, n),
+                                 active.view(n_members, n))
+    offset = torch.arange(0, n_members * n, n, device=r.device)
+    return (order + offset[:, None]).reshape(-1)
+
+
 def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
                      do_cull, do_relaunch):
-    """The K7 launches of :func:`simulate_streaming_ensemble`."""
+    """The K7 launches of :func:`simulate_streaming_ensemble`.  From
+    ``step_cuda.ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays in all,
+    each launch runs on :func:`member_tile_order`'s slots, gathered from
+    the caller-order state the last launch left, and one ``index_copy_``
+    puts ``(dens, r, m, active)`` back in the caller's slots after it, as
+    K5's launch loop does."""
     rays, mean = states.rays, states.mean
     E, n = rays.r.shape
     per_member_wind = isinstance(wind_fn, (list, tuple))
@@ -497,6 +519,12 @@ def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
     life = lifecycle_for(bg, cfg, src) if do_cull else None
     S = run.save_every
     n_tab = bg.centers.shape[0]
+    ordered = (S >= step_cuda.ORDER_MIN_STEPS
+               and E * n >= step_cuda.ORDER_MIN_RAYS)
+    if ordered:
+        frozen = torch.stack(ops.frozen)
+        if src:
+            template = torch.stack([*src[:3], src[3].to(torch.float32)])
 
     dens, r, m = (x.clone() for x in (flat_rays.dens, flat_rays.r, flat_rays.m))
     uv = torch.stack([mean.u, mean.v], dim=1).contiguous()     # (E, 2, n_tab)
@@ -510,9 +538,27 @@ def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
                                   for f in wind_fn], dim=1).contiguous()
             elif wind_fn is not None:
                 wind = _wind_table(wind_fn, t0, ci, S, run.dt, n_tab, device)
-            dens, r, m, uv, _, act = chunk(ops, dens, r, m, uv, act, S, life,
-                                           wind, n_members=E)
-            history.append(uv.clone())
+            tile_ops, tile_life, work = ops, life, (dens, r, m, act)
+            if ordered:
+                with profiling.span("msgwam.whole_run.sort"):
+                    order = member_tile_order(ops, r, m, act.bool(), E)
+                    slabs = torch.stack([dens, r, m, act.to(torch.float32)]
+                                        ).index_select(1, order)
+                    work = (*slabs[:3], slabs[3].to(torch.uint8))
+                    tile_ops = ops._replace(
+                        frozen=tuple(frozen.index_select(1, order)))
+                    if src:
+                        t = template.index_select(1, order)
+                        tile_life = life._replace(src=(*t[:3], t[3].bool()))
+            dens, r, m, uv, _, act = chunk(tile_ops, *work[:3], uv, work[3], S,
+                                           tile_life, wind, n_members=E)
+            profiling.add_order("K7", ordered)
+            with profiling.span("msgwam.whole_run.frame"):
+                if ordered:       # back to the caller's slots
+                    out = torch.stack([dens, r, m, act.to(torch.float32)])
+                    out = torch.empty_like(out).index_copy_(1, order, out)
+                    dens, r, m, act = (*out[:3], out[3].to(torch.uint8))
+                history.append(uv.clone())
     member = lambda x: x.reshape(E, n)
     final = State(rays._replace(dens=member(dens), r=member(r), m=member(m)),
                   MeanState(uv[:, 0].clone(), uv[:, 1].clone()))

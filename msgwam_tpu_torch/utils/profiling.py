@@ -26,6 +26,8 @@ or any ``torch.profiler.profile``):
   through device memory, and tile windows kept in the device-memory window
   scratch (a block's tiles past its first ``kWinShared``), each times the
   launch's steps, its three stages and its members.
+* K5 and K7 count their launches, and those whose tiles they ordered
+  first (``step_cuda.tile_order``; host integers, no device work).
 """
 
 from __future__ import annotations
@@ -43,12 +45,15 @@ TIERS = ("full", "first", "second")   # a tile's tier: 0, 1, 2
 TIER_SLOTS = 1024    # csrc/ray_physics.cuh kTierSlots: rows of a buffer
 WHOLE_RUN = ("K5", "K6", "K7")
 PLACES = ("on_chip", "streamed", "win_scratch")
+ORDERING = ("K5", "K7")
 
 _NULL = contextlib.nullcontext()
 # (kernel, device) -> the int64[TIER_SLOTS, 4] window-tier counts
 _TIER_COUNTS = {}
 # kernel -> {place: tile-stages (windows for "win_scratch")}, host integers
 _PLACEMENT = {k: dict.fromkeys(PLACES, 0) for k in WHOLE_RUN}
+# kernel -> [launches with ordered tiles, launches], host integers
+_ORDERED = {k: [0, 0] for k in ORDERING}
 
 
 def recording() -> bool:
@@ -109,12 +114,24 @@ def add_placement(kernel: str, on_chip: int, streamed: int,
             got[place] += int(n)
 
 
+def add_order(kernel: str, ordered: bool) -> None:
+    """Count one launch of ``kernel`` (one of :data:`ORDERING`), and
+    whether its tiles were ordered, while a profiler session records; else
+    nothing."""
+    if recording():
+        got = _ORDERED[kernel]
+        got[0] += int(ordered)
+        got[1] += 1
+
+
 def counts() -> dict:
     """``{"K3".."K7": {"full": n, "first": n, "second": n}}``, summed over
-    devices, each kernel module's ``LAUNCHES`` under ``"launches"``, and
+    devices, each kernel module's ``LAUNCHES`` under ``"launches"``,
     K5-K7's tile placement under ``"placement"``: ``{"K5".."K7":
-    {"on_chip": n, "streamed": n, "win_scratch": n}}``.  Reads the device:
-    call it after the profiled window."""
+    {"on_chip": n, "streamed": n, "win_scratch": n}}``, and K5's and K7's
+    ordered launches under ``"ordered"``: ``{"K5": [ordered, launches],
+    "K7": [...]}``.  Reads the device: call it after the profiled
+    window."""
     from ..ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
                        step_cuda_stream)
 
@@ -128,15 +145,19 @@ def counts() -> dict:
         for m in (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
                   step_cuda_stream)}
     out["placement"] = {k: dict(v) for k, v in _PLACEMENT.items()}
+    out["ordered"] = {k: list(v) for k, v in _ORDERED.items()}
     return out
 
 
 def reset_counts() -> None:
-    """Zero every window-tier and placement count (the buffers stay)."""
+    """Zero every window-tier, placement and order count (the buffers
+    stay)."""
     for buf in _TIER_COUNTS.values():
         buf.zero_()
     for got in _PLACEMENT.values():
         got.update(dict.fromkeys(PLACES, 0))
+    for got in _ORDERED.values():
+        got[:] = [0, 0]
 
 
 @contextlib.contextmanager

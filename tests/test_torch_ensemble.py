@@ -20,6 +20,7 @@ import msgwam_tpu_torch as mtt
 from msgwam_tpu.models.backgrounds import tidal_shear
 from msgwam_tpu.ops.step_pallas_stream import simulate_streaming_ensemble as jax_ens
 from msgwam_tpu.parallel import stack_ensemble as jax_stack
+from msgwam_tpu_torch.ops import step_cuda
 from msgwam_tpu_torch.ops.step_cuda_stream import (simulate_streaming,
                                                    simulate_streaming_ensemble)
 from msgwam_tpu_torch.parallel import (ensemble_simulate, initialize_distributed,
@@ -67,8 +68,9 @@ def _members(**cfg_kw):
             [mtt.from_numpy(m, device="cpu") for m in members])
 
 
-def _tides(cfg, scales):
-    c = torch.tensor(mtt.GridConfig().centers(), dtype=torch.float32)
+def _tides(cfg, scales, device="cpu"):
+    c = torch.tensor(mtt.GridConfig().centers(), dtype=torch.float32,
+                     device=device)
     return [lambda t, s=s: (s * mtt.tidal_shear(c, t, cfg, period=43200.0 / s),
                             torch.zeros_like(c)) for s in scales]
 
@@ -207,9 +209,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_k7_kernel_matches_twin_on_gpu(cuda_device):
+@pytest.mark.parametrize("ordered", [False, True])
+def test_k7_kernel_matches_twin_on_gpu(cuda_device, ordered, monkeypatch):
     """K7 with the lifecycle and per-member winds against its twin on the
-    CPU: 3e-5 relative to the maximum, masks equal."""
+    CPU: 3e-5 relative to the maximum, masks equal; with each member's
+    tiles ordered before every launch (``step_cuda_stream.
+    member_tile_order``) and without."""
+    monkeypatch.setattr(step_cuda, "ORDER_MIN_STEPS", 0)
+    monkeypatch.setattr(step_cuda, "ORDER_MIN_RAYS", 0 if ordered else 1 << 40)
     cfg, bg, members = _members(cull=True, relaunch=True, prognostic_mean=False)
     states, statics = stack_ensemble(members)
     winds = _tides(cfg, (1.0, 1.5))
@@ -219,7 +226,8 @@ def test_k7_kernel_matches_twin_on_gpu(cuda_device):
     g = lambda tree: mtt.from_numpy(mtt.to_numpy(tree), device=cuda_device)
     gs, gst_in, gbg = g(states), g(statics), g(bg)
     got, gst, gmh = simulate_streaming_ensemble(
-        gs, gst_in, gbg, cfg, RUN, sources=(gs.rays, gst_in), wind_fn=winds)
+        gs, gst_in, gbg, cfg, RUN, sources=(gs.rays, gst_in),
+        wind_fn=_tides(cfg, (1.0, 1.5), cuda_device))
     assert torch.equal(gst.active.cpu(), wst.active)
     for f in ("dens", "r", "m"):
         assert _rel(getattr(want.rays, f), getattr(got.rays, f).cpu()) < 3e-5, f
