@@ -1184,12 +1184,13 @@ def phase_path_b(device, smi: str) -> dict:
         init = [s.rays.dens, s.rays.r, s.rays.m, torch.stack([s.mean.u, s.mean.v])]
         spread = [x.clone() for x in init]
         for _ in range(DAY_STEPS // RESIDENT_STEPS):
-            step_cuda.launch(ops, *spread, RESIDENT_STEPS)
+            step_cuda.launch(ops, *spread, st.active, RESIDENT_STEPS)
         for label, start in (("launch", init), ("spread", spread)):
             for prog in (True, False):
                 o = ops._replace(prognostic=prog)
                 per_step[f"{n}_{label}_prog{int(prog)}"] = launch_ms(
-                    lambda w: step_cuda.launch(o, *w, TIMED_STEPS), start) / TIMED_STEPS
+                    lambda w: step_cuda.launch(o, *w, st.active, TIMED_STEPS),
+                    start) / TIMED_STEPS
         plan = step_cuda.device_plan(n, 1, ops, False)
         mirror = step_cuda.resident_plan(n, 1, ops.c_pad, ops.n_tab - 1,
                                          ops.online, ops.prognostic, sms=sms)
@@ -1218,7 +1219,8 @@ def phase_path_b(device, smi: str) -> dict:
         init2 = [state2.rays.dens, state2.rays.r, state2.rays.m,
                  torch.stack([state2.mean.u, state2.mean.v])]
         plan2 = step_cuda.device_plan(n, 1, ops2, False)
-        got2 = step_cuda.launch(ops2, *[x.clone() for x in init2], 3)
+        got2 = step_cuda.launch(ops2, *[x.clone() for x in init2],
+                                statics2.active, 3)
         twin2 = step_cuda.step_resident_reference(ops2, *init2, 3)
         errs = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m", "u"),
                                                 (*twin2[:3], twin2[3][0]),
@@ -1318,7 +1320,8 @@ def stream_twin(state, statics, bg, cfg, run, source=None, wind=None):
     act)`` in slot order (no launch sort)."""
     ops = step_cuda.operands(state, statics, bg, cfg, run.dt)
     src = step_cuda_stream._template(source, state.rays.r) if source else None
-    life = (step_cuda_stream.lifecycle_for(bg, cfg, src)
+    life = (step_cuda_stream.lifecycle_for(
+        bg, cfg, None if src is None else (*src[:3], src[3].bool()))
             if cfg.cull or cfg.relaunch else None)
     out = (state.rays.dens, state.rays.r, state.rays.m,
            torch.stack([state.mean.u, state.mean.v])[None], None,
@@ -1463,14 +1466,14 @@ def phase_path_d(device, smi: str) -> dict:
     # twin over one step); no prognostic wind, so no deposit
     ops = step_cuda.operands(state, statics, bg, cfg, DT)
     src = step_cuda_stream._template(source, state.rays.r)
-    life = step_cuda_stream.lifecycle_for(bg, cfg, src)
+    life = step_cuda_stream.lifecycle_for(bg, cfg, (*src[:3], src[3].bool()))
     uv = torch.stack([state.mean.u, state.mean.v])[None].contiguous()
     table = step_cuda_stream._wind_table(wind, 0.0, 0, TIMED_STEPS, DT,
                                          bg.centers.shape[0], device)
     act = statics.active.to(torch.uint8)
     init = [state.rays.dens, state.rays.r, state.rays.m, uv, act]
-    ms = launch_ms(lambda w: step_cuda_stream.launch(ops, *w, TIMED_STEPS, life,
-                                                     table), init) / TIMED_STEPS
+    ms = launch_ms(lambda w: step_cuda.launch(ops, *w, TIMED_STEPS, 1, life,
+                                              table, stream=True), init) / TIMED_STEPS
     plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
         ops, *init, 1, life, table[:1]), iters=3)
     # bytes: 45 in and 13 out per ray a launch, the template's mask read a step
@@ -1583,7 +1586,7 @@ def phase_path_e(device, smi: str) -> dict:
     log(f"[12]   9 steps, members vs their own K6 runs: {member_errs}")
 
     # K7 against its twin over 3 steps, and one launch of one step
-    flat = step_cuda_stream._flat
+    flat = lambda tree: tree_map(torch.flatten, tree)
     fstate = mtt.State(flat(sp.rays), mtt.MeanState(sp.mean.u[0], sp.mean.v[0]))
     fstat = flat(stp)
     ops = step_cuda.operands(fstate, fstat, bg_p, cfg_p, DT)
@@ -1591,7 +1594,8 @@ def phase_path_e(device, smi: str) -> dict:
     act = fstat.active.to(torch.uint8)
     base = (fstate.rays.dens, fstate.rays.r, fstate.rays.m)
     work = [x.clone() for x in (*base, uv)]
-    k7 = step_cuda_stream.launch(ops, *work, act.clone(), 3, n_members=N_MEMBERS)
+    k7 = step_cuda.launch(ops, *work, act.clone(), 3, n_members=N_MEMBERS,
+                          stream=True)
     tw = step_cuda_stream.step_stream_reference(ops, *base, uv, act, 3,
                                                 n_members=N_MEMBERS)
     twin_errs = {f: rel(w, g) for f, w, g in zip(("dens", "r", "m"), tw, k7)}
@@ -1600,8 +1604,9 @@ def phase_path_e(device, smi: str) -> dict:
                   for w, g in zip(tw[:3], k7[:3]))
     for k, v in twin_errs.items():
         check(v < RESIDENT_BAR, f"K7 vs twin {k}")
-    ms = launch_ms(lambda w: step_cuda_stream.launch(
-        ops, *w, TIMED_STEPS, n_members=N_MEMBERS), [*base, uv, act]) / TIMED_STEPS
+    ms = launch_ms(lambda w: step_cuda.launch(
+        ops, *w, TIMED_STEPS, n_members=N_MEMBERS, stream=True),
+        [*base, uv, act]) / TIMED_STEPS
     plain_ms = cuda_ms(lambda: step_cuda_stream.step_stream_reference(
         ops, *base, uv, act, 1, n_members=N_MEMBERS), iters=2, warmup=1)
     n_all = N_MEMBERS * N_PER_MEMBER
@@ -2665,7 +2670,8 @@ def phase_examples(device, smi: str) -> dict:
             torch.stack([state.mean.u, state.mean.v])]
     fields = ("dens", "r", "m", "u")
     pick = lambda out: (*out[:3], out[3][0])
-    got = step_cuda.launch(ops, *[x.clone() for x in init], K5_TWIN_STEPS)
+    got = step_cuda.launch(ops, *[x.clone() for x in init], statics.active,
+                           K5_TWIN_STEPS)
     twin = step_cuda.step_resident_reference(ops, *init, K5_TWIN_STEPS)
     short_errs = {f: rel(w, g) for f, w, g in zip(fields, pick(twin), pick(got))}
     short_abs = max(float((w.double() - g.double()).abs().max())
@@ -3245,8 +3251,8 @@ def phase_tracing(device, smi: str) -> dict:
              torch.stack([state.mean.u, state.mean.v]))
 
     def k5(counter):
-        return step_cuda.launch(ops, *(x.clone() for x in start), TRACE_STEPS,
-                                tiers=counter)
+        return step_cuda.launch(ops, *(x.clone() for x in start), statics.active,
+                                TRACE_STEPS, tiers=counter)
 
     def k5_twin(counter):
         return step_cuda.step_resident_reference(ops, *start, TRACE_STEPS,
@@ -3261,7 +3267,7 @@ def phase_tracing(device, smi: str) -> dict:
     state = tile_spans(state, (5.0, 30.0, 90.0))
     ops = step_cuda.operands(state, statics, bg, cfg, DT)
     src = step_cuda_stream._template((state.rays, statics), state.rays.r)
-    life = step_cuda_stream.lifecycle_for(bg, cfg, src)
+    life = step_cuda_stream.lifecycle_for(bg, cfg, (*src[:3], src[3].bool()))
     wind = step_cuda_stream._wind_table(wind_fn, 0.0, 0, TRACE_STEPS, DT, n_tab,
                                         device)
     start = (state.rays.dens, state.rays.r, state.rays.m,
@@ -3269,8 +3275,8 @@ def phase_tracing(device, smi: str) -> dict:
              statics.active.to(torch.uint8))
 
     def k6(counter):
-        return step_cuda_stream.launch(ops, *(x.clone() for x in start),
-                                       TRACE_STEPS, life, wind, tiers=counter)
+        return step_cuda.launch(ops, *(x.clone() for x in start), TRACE_STEPS,
+                                1, life, wind, tiers=counter, stream=True)
 
     def k6_twin(counter):
         return step_cuda_stream.step_stream_reference(

@@ -96,20 +96,6 @@ SIGNATURES = {
     "msgwam_step_resident": [
         _F, _F, _F, _F, _F, _F, _F, _F, _F,   # g0c dz g0f dzf dt bvf kappa f0 rdiv
         _I, _I, _I, _I,               # n_tab c_pad w1 w2
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,   # dr k l dm phi dkk dll area active
-        _I,                           # n
-        _P, _P, _P, _P, _P, _P,       # dens r m qd qr qm
-        _P, _P, _P,                   # r_prev m_prev dens_prop
-        _P, _P, _P, _P,               # uv rhobar pg inv_rho
-        _P, _P, _P, _P, _P,           # flux partials sync inv win
-        _I, _I,                       # n_blocks n_steps
-        _I, _I, _I,                   # online prognostic faithful
-        _P,                           # tier_counts
-        _P,                           # stream
-    ],
-    "msgwam_step_stream": [
-        _F, _F, _F, _F, _F, _F, _F, _F, _F,   # g0c dz g0f dzf dt bvf kappa f0 rdiv
-        _I, _I, _I, _I,               # n_tab c_pad w1 w2
         _P, _P, _P, _P, _P, _P, _P, _P, _P,   # dr k l dm phi dkk dll area act
         _I, _I,                       # n_per n_members
         _P, _P, _P, _P, _P, _P,       # dens r m qd qr qm
@@ -117,12 +103,12 @@ SIGNATURES = {
         _P, _P, _P, _P,               # uv rhobar pg inv_rho
         _P, _P, _P, _P, _P,           # flux partials sync inv win
         _I, _I,                       # blocks_per_member n_steps
-        _I, _I, _I,                   # online prognostic faithful
+        _I, _I, _I, _I,               # online prognostic faithful stream
         _I, _F, _F, _F,               # cull m_max face_lo face_hi
         _P, _P, _P, _P,               # src_dens src_r src_m src_act
         _P, _I,                       # wind wind_rows
         _P,                           # tier_counts
-        _P,                           # stream
+        _P,                           # cuda_stream
     ],
 }
 

@@ -872,51 +872,28 @@ extern "C" int msgwam_step_resident_plan(int n_per, int n_members, int c_pad,
   return 0;
 }
 
-// n_steps whole steps in one cooperative launch; dens, r, m and uv are
-// updated in place.  Scratch, sized from msgwam_step_resident_plan's plan:
-// flux (2, 2, n_tab - 1), partials (2, 2 (n_tab - 1), tile blocks), sync
-// (2, 2, 32) ints zeroed before the launch, inv (8, n) (unused when every
-// block owns one tile), win (tiles_per_block - 64, n_blocks) ints (unused
-// below 65 tiles per block); n_blocks must be the plan's.  tier_counts
-// (optional, (1024, 4): ray_physics.cuh's count_tier) receives the launch's
-// count of tile windows at full width, in the first window and in the
-// second, one per tile and stage (the offline saturation's window is not
-// counted).
-// A refused launch (cudaErrorCooperativeLaunchTooLarge and the like) comes
-// back as its error code.
+// The whole-run kernel: K5 (stream = 0), K6 (stream = 1, n_members = 1)
+// and K7, n_steps whole steps in one cooperative launch; dens, r, m (n_members
+// * n_per rays, member-major), the (n_members, 2, n_tab) wind uv and, with the
+// lifecycle, the byte mask act are updated in place.  Scratch, sized from
+// msgwam_step_resident_plan's plan with the same stream: flux (2, n_members,
+// 2, n_tab - 1), partials (2, n_members, 2 (n_tab - 1), tile blocks per
+// member), sync (n_members, 2, 2, 32) ints zeroed before the launch, inv (8,
+// n_members * n_per) (unused when every block owns one tile), win
+// (tiles_per_block - 64, n_members * blocks_per_member) ints (unused below 65
+// tiles per block); blocks_per_member must be the plan's.  Offline, r_prev,
+// m_prev and dens_prop are needed and dens_prop receives the density before
+// the last step's saturation; with relaunch, the last step's density before
+// the refill.  K6/K7 only, refused with stream = 0 as more than one member
+// is: the lifecycle (cull, and relaunch when the template src_* is given)
+// and the prescribed wind table (n_steps, wind_rows, n_tab), wind_rows 2
+// (shared) or 2 * n_members.  tier_counts (optional, (1024, 4):
+// ray_physics.cuh's count_tier) receives the launch's count of tile windows
+// at full width, in the first window and in the second, one per tile and
+// stage (the offline saturation's window is not counted).  A refused launch
+// (cudaErrorCooperativeLaunchTooLarge and the like) comes back as its error
+// code.
 extern "C" int msgwam_step_resident(
-    float g0c, float dz, float g0f, float dzf, float dt, float bvf,
-    float kappa, float f0, float rdiv, int n_tab, int c_pad, int w1, int w2,
-    const float* dr, const float* k, const float* l, const float* dm,
-    const float* phi, const float* dkk, const float* dll, const float* area,
-    const unsigned char* active, int n, float* dens, float* r, float* m,
-    float* qd, float* qr, float* qm, float* r_prev, float* m_prev,
-    float* dens_prop, float* uv, const float* rhobar, const float* pg,
-    const float* inv_rho, float* flux, double* partials, int* sync,
-    float* inv, int* win, int n_blocks, int n_steps, int online,
-    int prognostic, int faithful, unsigned long long* tier_counts,
-    void* stream) {
-  using namespace msgwam;
-  ResidentArgs a;
-  if (!fill_args(a, g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv, n_tab, c_pad,
-                 w1, w2, dr, k, l, dm, phi, dkk, dll, area, active, n, dens, r,
-                 m, qd, qr, qm, r_prev, m_prev, dens_prop, uv, rhobar, pg,
-                 inv_rho, flux, partials, sync, inv, win, n_blocks, n_steps,
-                 online, prognostic, faithful))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.tier_counts = tier_counts;
-  return static_cast<int>(launch_planned<false>(a, n, 1, n_blocks, stream));
-}
-
-// K6 (n_members = 1) and K7: K5's launch plus the lifecycle (cull, and
-// relaunch when the template is given), the prescribed wind table and the
-// member partition.  act is the mask, updated in place; uv is
-// (n_members, 2, n_tab); scratch as K5's with n_blocks = n_members *
-// blocks_per_member: flux (2, n_members, 2, n_tab - 1), partials (2,
-// n_members, 2 (n_tab - 1), tile blocks per member), sync (n_members, 2, 2,
-// 32) zeroed, inv (8, n_members * n_per).  With relaunch,
-// dens_prop receives the last step's density before the refill.
-extern "C" int msgwam_step_stream(
     float g0c, float dz, float g0f, float dzf, float dt, float bvf,
     float kappa, float f0, float rdiv, int n_tab, int c_pad, int w1, int w2,
     const float* dr, const float* k, const float* l, const float* dm,
@@ -926,15 +903,16 @@ extern "C" int msgwam_step_stream(
     float* dens_prop, float* uv, const float* rhobar, const float* pg,
     const float* inv_rho, float* flux, double* partials, int* sync,
     float* inv, int* win, int blocks_per_member, int n_steps, int online,
-    int prognostic, int faithful, int cull, float m_max, float face_lo,
-    float face_hi, const float* src_dens, const float* src_r,
+    int prognostic, int faithful, int stream, int cull, float m_max,
+    float face_lo, float face_hi, const float* src_dens, const float* src_r,
     const float* src_m, const unsigned char* src_act, const float* wind,
-    int wind_rows, unsigned long long* tier_counts, void* stream) {
+    int wind_rows, unsigned long long* tier_counts, void* cuda_stream) {
   using namespace msgwam;
   const bool relaunch = src_dens != nullptr;
   if (n_members < 1 || n_per < 1 || blocks_per_member < 1 ||
       n_per > INT_MAX / n_members ||
       blocks_per_member > INT_MAX / n_members ||
+      (!stream && (cull || relaunch || wind != nullptr || n_members != 1)) ||
       (relaunch && (!cull || src_r == nullptr || src_m == nullptr ||
                     src_act == nullptr || dens_prop == nullptr)) ||
       (cull && !online) ||
@@ -948,6 +926,10 @@ extern "C" int msgwam_step_stream(
                  dens_prop, uv, rhobar, pg, inv_rho, flux, partials, sync,
                  inv, win, n_blocks, n_steps, online, prognostic, faithful))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.tier_counts = tier_counts;
+  if (!stream)
+    return static_cast<int>(
+        launch_planned<false>(a, n_per, 1, n_blocks, cuda_stream));
   a.act = act;
   a.src_dens = src_dens;
   a.src_r = src_r;
@@ -963,7 +945,6 @@ extern "C" int msgwam_step_stream(
   a.n_members = n_members;
   a.n_per = n_per;
   a.bpm = blocks_per_member;
-  a.tier_counts = tier_counts;
-  return static_cast<int>(
-      launch_planned<true>(a, n_per, n_members, blocks_per_member, stream));
+  return static_cast<int>(launch_planned<true>(a, n_per, n_members,
+                                               blocks_per_member, cuda_stream));
 }

@@ -1,55 +1,50 @@
 """K5: whole RK3 steps of the coupled model per launch, as a hand-written
-persistent cooperative Hopper kernel that keeps the ray state on chip.
+persistent cooperative Hopper kernel that keeps the ray state on chip; and
+the host launch loop of K5, K6 and K7.
 
 Replaces ``msgwam_tpu/ops/step_pallas.py`` (``_kernel``, entry points
 ``_megakernel_call``, ``_simulate_resident_impl`` and
-``simulate_resident``).  The CUDA source is ``csrc/step_resident.cu``.
-:func:`simulate_resident` runs ``run.n_steps`` steps as
-``n_steps // save_every`` launches, each of ``save_every`` whole steps.
-Each block owns the same 256-ray tiles for the whole launch and keeps
-their dens, r, m and RK3 registers in registers (its first tile) and
-shared memory (the next ones, as far as they fit), and the frozen terms of
-each ray from the launch start; per stage the windowed RHS of K3 with the
-RK3 update, the next stage's deposit, one grid-wide wait for the flux
-(the block partials summed in a fixed order, by blocks without tiles
-where the card has room) and the wind's stage update in every block; in
-offline mode the direct saturation with finite-difference rates (quirk 2
-included) after the third stage.  :func:`resident_plan` mirrors the
-kernel's block plan and on-chip capacity for a given card.
+``simulate_resident``).  The CUDA source is ``csrc/step_resident.cu``, one
+template behind one C entry point: ``kStream = false`` is K5, ``true`` K6
+and K7 (:mod:`.step_cuda_stream`).  Each block owns the same 256-ray tiles
+for the whole launch and keeps their dens, r, m and RK3 registers in
+registers (its first tile) and shared memory (the next ones, as far as they
+fit), and the frozen terms of each ray from the launch start; per stage the
+windowed RHS of K3 with the RK3 update, the next stage's deposit, one
+grid-wide wait for the flux (the block partials summed in a fixed order, by
+blocks without tiles where the card has room) and the wind's stage update
+in every block; in offline mode the direct saturation with
+finite-difference rates (quirk 2 included) after the third stage.
+:func:`resident_plan` mirrors the kernel's block plan and on-chip capacity.
 
-K5 orders its own tiles.  A tile's deposit and windows cost what its rays
-span in cells (``csrc/deposit.cuh``), and rays of different vertical
-wavenumbers part at different group velocities.  So before every launch
-of at least ``ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays
-:func:`tile_order` sorts the caller's slots by the deposit's height cell,
-then by m (inactive and non-finite slots last, ties in the caller's
-order), and gathers of stacked slabs put the state, the frozen terms and
-the mask in that order.  After the launch one scatter puts the frame, with
-``dens_prop``, back in the caller's slots, and the next launch orders that
-again, so the tiles are a function of the state alone.  Shorter launches
-run on the caller's order: there the order's small operations cost more
-than the narrower tiles save.  K7 orders each ensemble member's slots by
-the same key and cut (``step_cuda_stream.member_tile_order``).
+The whole-run layer is one loop, :func:`whole_run`: ``n_steps //
+save_every`` launches, each :func:`launch` on the card or the plain twin
+for CPU tensors (:func:`run_launch`), plan and scratch built once per run.
+:func:`simulate_resident` (K5) and the entry points of K6 and K7 hand it
+what their route adds, as data, and a slot policy.  K5 and K7 order their
+own tiles: a tile's deposit and windows cost what its rays span in cells
+(``csrc/deposit.cuh``), and rays of different vertical wavenumbers part at
+different group velocities, so before every launch of at least
+``ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays the slots go in
+:func:`tile_order` (height cell, then m), and back to the caller's after
+it.  Shorter launches run on the caller's order: there the order's small
+operations cost more than the narrower tiles save.
 
 Not ported from the JAX module: ``build_operators``/``_host_linear_map``
 (matrices that fed the TPU's matrix unit; the kernel takes the shear and
 the flux divergence as differences) and the 131,072-ray cap of the TPU's
 fast memory (tiles past the on-chip capacity stream through device memory,
-so any count that fits the card runs).  The lifecycle (``cfg.cull``,
-``cfg.relaunch``), a prescribed ``wind_fn`` and ``launch_sort=True`` route
-to the streaming kernel K6 (:mod:`msgwam_tpu_torch.ops.step_cuda_stream`),
-the same CUDA template, which keeps its own opt-in height sort.
+so any count that fits the card runs).
 
 Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
-(else ``ValueError``); differentiable through the plain path
-(:mod:`.adjoint`).  For CPU tensors each launch runs
-the plain twin :func:`step_resident_reference`; ``LAUNCHES`` counts
-kernel launches.  While a profiler records, the whole run is a span
-``msgwam.whole_run`` with its phases (each launch's ordering
-``msgwam.whole_run.sort``), each launch (or twin) a span
-``msgwam.launch.k5``, and the launches add their tile windows' tiers and
-their tiles' placement (on chip, streamed, windows in the scratch) to K5's
-counts (:mod:`..utils.profiling`).
+(else ``ValueError``); K5 is differentiable through the plain path
+(:mod:`.adjoint`).  ``LAUNCHES`` counts K5's kernel launches.  While a
+profiler records, the whole run is a span ``msgwam.whole_run`` with its
+phases (``.prepare``, ``.template``, ``.wind_table``, ``.sort``,
+``.scratch``, ``.frame``, ``.history``), each launch (or twin) a span
+``msgwam.launch.k5``, ``k6`` or ``k7``, and the launches add their tile
+windows' tiers and their tiles' placement to their kernel's counts, K5's
+and K7's their ordered launches (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -70,11 +65,12 @@ from . import adjoint, ray_physics, rhs_cuda
 LAUNCHES = 0
 
 MAX_PAD = 256        # csrc/step_resident.cu Fixed<256>: c_pad, at most
-# The smallest launch whose tiles K5 orders (:func:`tile_order`), from Path
-# B days timed on an H100 over launch lengths and populations (PERF.md
-# section 6).  The order costs 0.2-0.5 ms of device time and ~0.5 ms of host
-# time a launch: from 24 steps an input already in order loses at most ~5%
-# to it, and from 1e5 rays the launch hides its host time.
+# The smallest launch whose tiles K5 and K7 order (:func:`tile_order`; K7 on
+# all its members' rays), from Path B days timed on an H100 over launch
+# lengths and populations (PERF.md section 6).  The order costs 0.2-0.5 ms
+# of device time and ~0.5 ms of host time a launch: from 24 steps an input
+# already in order loses at most ~5% to it, and from 1e5 rays the launch
+# hides its host time.
 ORDER_MIN_STEPS = 24
 ORDER_MIN_RAYS = 100_000
 
@@ -253,43 +249,109 @@ def scratch(plan: Plan, n: int, n_members: int, n_flux: int, device) -> tuple:
                         dtype=torch.int32, device=device))
 
 
-def launch(ops: Operands, dens, r, m, uv, n_steps: int, tiers=None):
-    """One launch of ``n_steps`` whole steps on the card: updates ``dens``,
-    ``r``, ``m`` and the ``(2, n_tab)`` wind ``uv`` in place and returns
-    ``(dens, r, m, uv, dens_prop)``, ``dens_prop`` the density before the
-    last step's offline saturation (a copy of ``dens`` online).  ``tiers``,
-    a :func:`..utils.profiling.tier_counter` buffer or ``None``, receives
-    the launch's tile windows by tier."""
+class Work(NamedTuple):
+    """A run's plan and scratch (:func:`prepare_launches`): the RK3 registers
+    (and r, m a step back offline), :func:`scratch`'s; None for the twin."""
+
+    plan: Plan
+    regs: tuple = None      # qd qr qm r_prev m_prev
+    scratch: tuple = None
+
+
+def kernel_name(stream: bool, n_members: int) -> str:
+    """K5, or with ``stream`` K6 (one member) or K7."""
+    return ("K7" if n_members > 1 else "K6") if stream else "K5"
+
+
+def prepare_launches(ops: Operands, n_per: int, n_members: int, stream: bool,
+                     device) -> Work:
+    """The plan and the scratch of a run's launches, built once: the
+    kernel's plan (:func:`device_plan`) on the card, the one the twin
+    counts by (:func:`mirror_plan`) for CPU tensors."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return Work(mirror_plan(n_per, n_members, ops))
+    n = n_per * n_members
+    with torch.cuda.device(device):
+        plan = device_plan(n_per, n_members, ops, stream)
+        regs = tuple(torch.empty(n, dtype=torch.float32, device=device)
+                     if i < 3 or not ops.online else None for i in range(5))
+        return Work(plan, regs, scratch(plan, n, n_members, ops.n_tab - 1, device))
+
+
+def launch(ops: Operands, dens, r, m, uv, act, n_steps: int, n_members: int = 1,
+           life: "Lifecycle" = None, wind=None, tiers=None, stream: bool = False,
+           work: Work = None):
+    """One launch of ``n_steps`` whole steps on the card of K5, or with
+    ``stream`` of K6 (K7 with ``n_members > 1``, member-major rays):
+    ``dens``, ``r``, ``m``, the ``(n_members, 2, n_tab)`` wind ``uv`` and
+    the byte mask ``act`` are updated in place.  K6/K7 take the lifecycle
+    ``life`` and the ``(n_steps, 2 or 2 n_members, n_tab)`` wind table
+    ``wind``.  ``tiers`` (a :func:`..utils.profiling.tier_counter` buffer
+    or ``None``) receives the tile windows by tier; ``work`` is the run's
+    :func:`prepare_launches`, made here without it.  Returns ``(dens, r, m,
+    uv, dens_prop, act)``, ``dens_prop`` the density before the last step's
+    offline saturation or relaunch (else a copy of ``dens``)."""
     global LAUNCHES
-    lib = _build.library()
+    from . import step_cuda_stream
+
+    kernel = kernel_name(stream, n_members)
     n = dens.shape[0]
+    relaunch = life is not None and life.src is not None
     device = dens.device
     with torch.cuda.device(device):
         with profiling.span("msgwam.whole_run.scratch"):
-            plan = device_plan(n, 1, ops, False)
-            qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
-            r_prev = m_prev = dens_prop = None
-            if not ops.online:
-                r_prev, m_prev, dens_prop = (torch.empty_like(dens)
-                                             for _ in range(3))
-            work = scratch(plan, n, 1, ops.n_tab - 1, device)
-        with profiling.span("msgwam.launch.k5"):
-            err = lib.msgwam_step_resident(
+            if work is None:
+                work = prepare_launches(ops, n // n_members, n_members, stream,
+                                        device)
+            work.scratch[2].zero_()                 # the sync counters
+            dens_prop = (torch.empty_like(dens) if not ops.online or relaunch
+                         else None)
+        src = life.src if relaunch else (None,) * 4
+        with profiling.span(f"msgwam.launch.{kernel.lower()}"):
+            err = _build.library().msgwam_step_resident(
                 *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
-                *(x.data_ptr() for x in ops.frozen), ops.active.data_ptr(), n,
-                dens.data_ptr(), r.data_ptr(), m.data_ptr(),
-                qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
-                _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
+                *(x.data_ptr() for x in ops.frozen), act.data_ptr(),
+                n // n_members, n_members, dens.data_ptr(), r.data_ptr(),
+                m.data_ptr(), *map(_ptr, work.regs), _ptr(dens_prop),
                 uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-                ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
-                plan.blocks_per_member, n_steps, int(ops.online),
-                int(ops.prognostic), int(ops.faithful), _ptr(tiers),
+                ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work.scratch),
+                work.plan.blocks_per_member, n_steps, int(ops.online),
+                int(ops.prognostic), int(ops.faithful), int(stream),
+                int(life is not None),
+                *((life.m_max, life.face_lo, life.face_hi) if life
+                  else (0.0,) * 3),
+                *map(_ptr, src), _ptr(wind),
+                0 if wind is None else wind.shape[1], _ptr(tiers),
                 torch.cuda.current_stream(device).cuda_stream,
             )
             _build.check(err, "msgwam_step_resident")
-    count_placement("K5", plan, n_steps)
-    LAUNCHES += 1
-    return dens, r, m, uv, dens.clone() if ops.online else dens_prop
+    count_placement(kernel, work.plan, n_steps, n_members)
+    if stream:
+        step_cuda_stream.LAUNCHES[kernel] += 1
+    else:
+        LAUNCHES += 1
+    return dens, r, m, uv, dens.clone() if dens_prop is None else dens_prop, act
+
+
+def run_launch(ops: Operands, dens, r, m, uv, act, n_steps: int, n_members: int,
+               life, wind, tiers, stream: bool, work: Work):
+    """:func:`launch` on the card, or for CPU tensors its plain twin
+    (``step_cuda_stream.step_stream_reference``) in the launch's span,
+    written back in place, with the same tier and placement counts."""
+    if dens.is_cuda:
+        return launch(ops, dens, r, m, uv, act, n_steps, n_members, life, wind,
+                      tiers, stream, work)
+    from .step_cuda_stream import step_stream_reference
+
+    kernel = kernel_name(stream, n_members)
+    with profiling.span(f"msgwam.launch.{kernel.lower()}"):
+        *new, prop, new_act = step_stream_reference(
+            ops, dens, r, m, uv, act, n_steps, life, wind, n_members, tiers)
+    for buf, x in zip((dens, r, m, uv, act), (*new, new_act)):
+        buf.copy_(x)
+    count_placement(kernel, work.plan, n_steps, n_members)
+    return dens, r, m, uv, prop, act
 
 
 class Lifecycle(NamedTuple):
@@ -306,16 +368,12 @@ class Lifecycle(NamedTuple):
 def step_resident_reference(ops: Operands, dens, r, m, uv, n_steps: int,
                             act=None, life: Lifecycle = None, wind=None,
                             tiers=None):
-    """Plain PyTorch twin of one launch (any device, the inputs' dtype):
-    returns new ``(dens, r, m, uv, dens_prop)`` and modifies nothing; the
-    tile windows of every stage go to ``tiers`` by tier, as
-    :func:`launch`'s.
-
-    The K6 twin (:func:`msgwam_tpu_torch.ops.step_cuda_stream.
-    step_stream_reference`) passes the mask ``act`` (default
-    ``ops.active``), the lifecycle ``life`` and a ``(n_steps, 2, n_tab)``
-    ``wind`` table; it reads the mask after the run from the sixth entry
-    this then returns."""
+    """Plain PyTorch twin of one launch of K5 (any device, the inputs'
+    dtype): returns new ``(dens, r, m, uv, dens_prop)`` and modifies
+    nothing; the tile windows of every stage go to ``tiers`` by tier.
+    ``step_cuda_stream.step_stream_reference`` passes a member's mask
+    ``act`` (default ``ops.active``), lifecycle ``life`` and ``(n_steps, 2,
+    n_tab)`` ``wind`` rows, and reads the mask from a sixth entry."""
     g0c, dz, g0f, dzf, dt, bvf, kappa, f0, rdiv = ops.scalars
     params = torch.tensor([g0c, dz, g0f], dtype=dens.dtype, device=dens.device)
     g = ray_physics.geometry(params, ops.n_tab)
@@ -393,20 +451,26 @@ def _offline_saturation(ops: Operands, g, act, dens, r, m, r_prev, m_prev):
     return torch.where((cap < dens * pvol) & act, cap_applied, dens)
 
 
-def tile_order(ops: Operands, r, m, active):
-    """K5's tile order: the slots of active rays with finite r and m by
-    the height cell of their deposit (``trunc(r / dz)``, clamped to
-    ``[0, n_tab - 2]`` as ``deposit.cuh:cell_span`` clamps it), then by m,
-    and every other slot last.  One stable sort of a 64-bit key (the cell
-    above m's float32 bits mapped to their order), so that equal keys keep
-    the callers' slot order and the order is a function of the state."""
+def tile_order(ops: Operands, r, m, active, n_members: int = 1):
+    """K5's tile order, K7's member by member within each member's slots
+    ``[e n, (e + 1) n)`` of the flat ``r``, ``m`` and ``active``: active
+    rays with finite r and m by the height cell of their deposit
+    (``trunc(r / dz)``, clamped to ``[0, n_tab - 2]`` as
+    ``deposit.cuh:cell_span`` clamps it), then by m, every other slot last.
+    One stable sort of a 64-bit key (the cell above m's float32 bits mapped
+    to their order) per member: equal keys keep the caller's slot order,
+    and the order is a function of the state."""
     dz, nzmax = ops.scalars[1], ops.n_tab - 2
     ok = active & torch.isfinite(r) & torch.isfinite(m)
     cell = torch.trunc(r * (1.0 / dz)).clamp_(0, nzmax)
     cell = torch.where(ok, cell, nzmax + 1).to(torch.int64)
     bits = m.view(torch.int32)
     m_key = torch.where(ok, bits ^ ((bits >> 31) & 0x7FFFFFFF), 0)
-    return torch.sort((cell << 32) + m_key, stable=True).indices
+    key = ((cell << 32) + m_key).view(n_members, -1)
+    order = torch.sort(key, stable=True).indices
+    if n_members > 1:
+        order += torch.arange(0, r.shape[0], key.shape[1], device=r.device)[:, None]
+    return order.view(-1)
 
 
 def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
@@ -443,10 +507,10 @@ def simulate_resident(state, statics, bg, cfg, run, include_t0: bool = False,
             source=source, wind_fn=wind_fn, t0=t0, launch_sort=launch_sort,
             observe=observe, source_key=source_key)
     del source, source_key, t0
-
-    def kernel(state, statics, bg):
-        return _simulate_resident_impl(state, statics, bg, cfg, run,
-                                       include_t0=include_t0, observe=observe)
+    check_run(state, cfg, run, "simulate_resident")
+    kernel = functools.partial(whole_run, cfg=cfg, run=run,
+                               name="simulate_resident", order="tiles",
+                               observe=observe, include_t0=include_t0)
 
     def plain(state, statics, bg):
         from ..models.integrate import simulate
@@ -475,81 +539,128 @@ def check_run(state, cfg, run, name: str) -> None:
 
 
 @profiling.spanned("msgwam.whole_run")
-def _simulate_resident_impl(state, statics, bg, cfg, run,
-                            include_t0: bool = False, observe=None):
-    """``run.n_steps // run.save_every`` launches of ``save_every`` steps
-    each, on the slots in :func:`tile_order` from ``ORDER_MIN_STEPS`` steps
-    and ``ORDER_MIN_RAYS`` rays; returns ``(final_state, statics,
-    history)`` in the caller's slot order.  The frozen ray fields (lam,
-    phi, dr, k, l, dm) come from the initial state."""
+def whole_run(state, statics, bg, cfg, run, name: str, stream: bool = False,
+              members: bool = False, order: str = None, life: Lifecycle = None,
+              relaunch: bool = False, template=None, draw=None, wind=None,
+              observe=None, include_t0: bool = False,
+              return_final_perm: bool = False):
+    """The host launch loop of K5-K7: ``run.n_steps // run.save_every``
+    launches of K5, or with ``stream`` of K6 (K7 with ``members``, a
+    leading member axis on every leaf of ``state`` and ``statics``), each
+    by :func:`run_launch`.  Returns ``(final_state, statics, history)`` in
+    the caller's slots and layout (and with ``return_final_perm`` the last
+    launch's slot permutation, ``perm[i]`` the slot at position ``i``);
+    ``name`` is the entry point's.  A route adds, as data: ``life`` the
+    cull bounds, ``relaunch`` from ``template`` (a fixed template's float32
+    ``(4, n)`` rows ``(dens, r, m, active)``) or ``draw()`` (a keyed one's,
+    drawn each launch), and ``wind(ci)``, launch ``ci``'s wind table.  The
+    slot policy ``order`` is ``"tiles"`` (K5, K7: from ``ORDER_MIN_STEPS``
+    steps and ``ORDER_MIN_RAYS`` rays each launch in :func:`tile_order`
+    from the caller-order state, restored after it), ``"heights"`` (K6's
+    launch sort: a stable sort of the heights as the slots lie, inactive
+    last, carried from launch to launch) or ``None`` (the caller's order);
+    a permutation takes one gather of the stacked slab (state, mask, frozen
+    terms, fixed template) and one ``index_copy_`` back for each frame.  A
+    frame is ``observe(state, statics, aux)`` or ``(State, active,
+    dens_prop)``; ``include_t0`` prepends the initial state's."""
     from ..models.integrate import StepAux
 
     with profiling.span("msgwam.whole_run.prepare"):
-        check_run(state, cfg, run, "simulate_resident")
-        rhs_cuda.check_inputs(state, statics, bg, "simulate_resident", MAX_PAD)
         rays, mean = state.rays, state.mean
-        cfg = rhs_cuda.apply_champion(cfg, rays.r.shape[0])
-        ops = operands(state, statics, bg, cfg, run.dt)
-        tiers = profiling.tier_counter(rays.r.device, "K5")
-        if rays.r.device.type == "cuda":
-            chunk = functools.partial(launch, tiers=tiers)
-        else:
-            def chunk(ops, dens, r, m, uv, n_steps):
-                with profiling.span("msgwam.launch.k5"):
-                    out = step_resident_reference(ops, dens, r, m, uv, n_steps,
-                                                  tiers=tiers)
-                count_placement("K5", mirror_plan(dens.shape[0], 1, ops), n_steps)
-                return out
-        # the next launch's (dens, r, m), in the caller's slot order; the
-        # kernel updates what it is given in place
-        cur = torch.stack([rays.dens, rays.r, rays.m])
-        uv = torch.stack([mean.u, mean.v])
-        ordered = (run.save_every >= ORDER_MIN_STEPS
-                   and rays.r.shape[0] >= ORDER_MIN_RAYS)
-        if ordered:
-            frozen = torch.stack(ops.frozen)
+        n_members, fstate, fstatics = 1, state, statics
+        if members:
+            n_members = rays.r.shape[0]
+            fstatics = tree_map(torch.flatten, statics)
+            fstate = State(tree_map(torch.flatten, rays),
+                           MeanState(mean.u[0], mean.v[0]))
+        rhs_cuda.check_inputs(fstate, fstatics, bg, name, MAX_PAD)
+        n = fstatics.active.shape[0]
+        cfg = rhs_cuda.apply_champion(cfg, n)
+        ops = operands(fstate, fstatics, bg, cfg, run.dt)
+        device = rays.r.device
+        tiers = profiling.tier_counter(device, kernel_name(stream, n_members))
+        work = prepare_launches(ops, n // n_members, n_members, stream, device)
+        tiles = (order == "tiles" and run.save_every >= ORDER_MIN_STEPS
+                 and n >= ORDER_MIN_RAYS)
+        # the slab as it lies between launches: dens, r, m, the mask, the
+        # frozen terms, a fixed template; perm: the caller's slot of each column
+        slab = torch.stack([x.to(torch.float32) for x in (
+            fstate.rays.dens, fstate.rays.r, fstate.rays.m, fstatics.active,
+            *ops.frozen, *(() if template is None else template))])
+        perm, cur, out = None, None, slab[:4].unbind()
+        active = fstatics.active          # the caller-order mask
+        uv = torch.stack([mean.u, mean.v], dim=-2).reshape(n_members, 2, -1)
+        shape = (lambda x: x.view(rays.r.shape)) if members else (lambda x: x)
 
-    def to_state(dens, r, m, uv):
-        return State(rays._replace(dens=dens, r=r, m=m),
-                     MeanState(uv[0].clone(), uv[1].clone()))
+    def to_state(out):
+        return State(rays._replace(dens=shape(out[0]), r=shape(out[1]),
+                                   m=shape(out[2])),
+                     MeanState(*(w.reshape(mean.u.shape).clone()
+                                 for w in uv.unbind(1))))
 
-    frames, props = [], []
-    with torch.no_grad():
-        for _ in range(run.n_steps // run.save_every):
-            tile_ops, work = ops, cur
-            if ordered:
-                with profiling.span("msgwam.whole_run.sort"):
-                    order = tile_order(ops, cur[1], cur[2], ops.active)
-                    tile_ops = ops._replace(
-                        frozen=tuple(frozen.index_select(1, order)),
-                        active=ops.active.index_select(0, order))
-                    work = cur.index_select(1, order)
-            dens, r, m, uv, prop = chunk(tile_ops, *work, uv, run.save_every)
-            profiling.add_order("K5", ordered)
-            with profiling.span("msgwam.whole_run.frame"):
-                if ordered:       # back to the caller's slots
-                    out = torch.stack([dens, r, m, prop])
-                    out = torch.empty_like(out).index_copy_(1, order, out)
-                    (dens, r, m, prop), cur = out, out[:3]
-                else:             # a copy for the next launch to update
-                    cur = torch.stack([dens, r, m])
-                frames.append(to_state(dens, r, m, uv))
-                props.append(prop)
+    def frame(out):
+        fstate, fact = to_state(out), shape(active)
+        if observe is None:
+            return fstate, fact, shape(out[4])
+        return observe(fstate, statics if life is None
+                       else statics._replace(active=fact),
+                       StepAux(dens_prop=shape(out[4])))
 
-    final = frames[-1] if frames else to_state(*cur, uv)
-    if observe is not None:
+    frames = []
+    if include_t0:
         with profiling.span("msgwam.whole_run.frame"):
-            hist = [observe(s, statics, StepAux(dens_prop=p))
-                    for s, p in zip(frames, props)]
-            if include_t0:
-                hist.insert(0, observe(state, statics,
-                                       StepAux(dens_prop=rays.dens)))
-        with profiling.span("msgwam.whole_run.history"):
-            return final, statics, tree_map(lambda *xs: torch.stack(xs), *hist)
+            frames.append((state, statics.active, rays.dens) if observe is None
+                          else observe(state, statics, StepAux(dens_prop=rays.dens)))
+    with torch.no_grad():
+        for ci in range(run.n_steps // run.save_every):
+            cur = slab
+            if tiles or order == "heights":
+                with profiling.span("msgwam.whole_run.sort"):
+                    step = (tile_order(ops, slab[1], slab[2], active, n_members)
+                            if tiles else torch.sort(torch.where(
+                                slab[3].bool(), slab[1], math.inf),
+                                stable=True).indices)
+                    cur = slab.index_select(1, step)
+                    perm = step if perm is None else perm[step]
+            rows = cur.unbind()           # row views in one call: cheap on the host
+            src = rows[12:] if template is not None else None
+            if draw is not None:
+                with profiling.span("msgwam.whole_run.template"):
+                    src = draw()
+                    src = (src if perm is None else src[:, perm]).unbind()
+            table = None
+            if wind is not None:
+                with profiling.span("msgwam.whole_run.wind_table"):
+                    table = wind(ci)
+            life_c = (life._replace(src=(*src[:3], src[3].bool())) if relaunch
+                      else life)
+            act = rows[3].to(torch.uint8)
+            _, _, _, uv, prop, act = run_launch(
+                ops._replace(frozen=rows[4:12]), *rows[:3], uv, act,
+                run.save_every, n_members, life_c, table, tiers, stream, work)
+            if order == "tiles":
+                profiling.add_order("K7" if stream else "K5", tiles)
+            with profiling.span("msgwam.whole_run.frame"):
+                rows[3].copy_(act)
+                back = torch.stack([*rows[:4], prop])
+                if perm is not None:      # back to the caller's slots
+                    back = torch.empty_like(back).index_copy_(1, perm, back)
+                if tiles:
+                    slab[:4].copy_(back[:4])
+                    perm = None
+                else:
+                    slab = cur
+                out = back.unbind()
+                if life is not None:
+                    active = out[3].bool()
+                frames.append(frame(out))
+    del slab, cur, work           # the run's buffers, before the history's stacks
     with profiling.span("msgwam.whole_run.history"):
-        if include_t0:
-            frames.insert(0, state)
-            props.insert(0, rays.dens)
-        history_state = tree_map(lambda *xs: torch.stack(xs), *frames)
-        active = torch.stack([statics.active] * len(frames))
-        return final, statics, (history_state, active, torch.stack(props))
+        final = to_state(out)
+        if life is not None:
+            statics = statics._replace(active=shape(active))
+        history = tree_map(lambda *xs: torch.stack(xs), *frames)
+    if not return_final_perm:
+        return final, statics, history
+    return (final, statics, history,
+            torch.arange(n, device=device) if perm is None else perm)

@@ -13,22 +13,18 @@ The scan path (``models/integrate.py``) culls only when ``cfg.cull``;
 this kernel culls when ``cfg.cull or cfg.relaunch``, as the JAX package's
 streaming kernel does (``step_pallas_stream.py:1052``).
 
-On the host, between launches, as in the JAX package: the per-step wind
-table (:func:`_wind_table`), keyed templates drawn once per launch, and
-the launch sort, a stable ``torch.sort`` of the heights (inactive slots
-last) and one gather of all per-ray arrays stacked, with the slot ids
-riding along, so that history frames and the final state come back in the
-caller's slot order.  K7 orders each member's tiles as K5 orders its own
-(:func:`member_tile_order`), from the same launch length and ray count
-on, and puts the state back in the caller's slots after every launch.
+The entry points check their route and hand it as data to K5's launch loop
+(:func:`msgwam_tpu_torch.ops.step_cuda.whole_run`): the cull bounds, a
+fixed template or keyed ones drawn each launch, each launch's wind table
+(:func:`_wind_table`), and K6's launch sort or K7's tile order.
 
 Not ported, and why:
 
 * ``TILE_ROWS``/``_auto_tile_rows``, the DMA double-buffering, the
   semaphores and the padding to three or more tiles
   (``step_pallas_stream.py:167-232, 1104-1110``): the TPU's fast-memory
-  pipeline.  The port's tile is the kernels' 256-ray tile, nothing is
-  padded, and ``tile_rows`` is accepted and changes nothing.
+  pipeline.  The port's tile is the kernels' 256 rays; ``tile_rows`` does
+  nothing.
 * ``_ablate``, a profiling switch of the TPU kernel.
 * A backward for K6: :func:`simulate_streaming` is forward only, as the
   JAX package's streaming path is, and raises when an input needs a
@@ -45,25 +41,18 @@ Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``), the lifecycle with online saturation only.  For CPU
 tensors each launch runs the plain twin :func:`step_stream_reference`;
 ``LAUNCHES`` counts kernel launches, K6's (one member) and K7's apart.
-While a profiler records, :func:`simulate_streaming` is a span
-``msgwam.whole_run`` with its phases, each launch (or twin) a span
-``msgwam.launch.k6`` or ``k7``, K7's ordering and restore spans
-``msgwam.whole_run.sort`` and ``.frame``, and the launches add their tile
-windows' tiers and their tiles' placement to K6's or K7's counts, and K7
-its ordered launches (:mod:`..utils.profiling`).
+Spans and counts as K5's loop keeps them (``msgwam.launch.k6``/``k7``).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
 from .. import _build
-from ..state import MeanState, State, tree_map
-from ..utils import profiling
-from . import adjoint, rhs_cuda, step_cuda
+from ..state import tree_map
+from . import adjoint, step_cuda
 from .step_cuda import Lifecycle
 
 LAUNCHES = {"K6": 0, "K7": 0}
@@ -76,66 +65,11 @@ def lifecycle_for(bg, cfg, src=None) -> Lifecycle:
     return Lifecycle(f32(cfg.m_max), f32(bg.faces[0]), f32(bg.faces[-1]), src)
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
-def launch(ops, dens, r, m, uv, act, n_steps: int, life: Lifecycle = None,
-           wind=None, n_members: int = 1, tiers=None):
-    """One launch of ``n_steps`` steps of K6 (K7 with ``n_members > 1``):
-    ``dens``, ``r``, ``m`` (``n_members * n_per`` rays, member-major), the
-    ``(n_members, 2, n_tab)`` wind ``uv`` and the byte mask ``act`` are
-    updated in place.  ``wind`` is ``(n_steps, 2 or 2 n_members, n_tab)``.
-    ``tiers``, a :func:`..utils.profiling.tier_counter` buffer or ``None``,
-    receives the launch's tile windows by tier.  Returns ``(dens, r, m, uv,
-    dens_prop, act)``."""
-    lib = _build.library()
-    n = dens.shape[0]
-    n_per = n // n_members
-    device = dens.device
-    relaunch = life is not None and life.src is not None
-    with torch.cuda.device(device):
-        with profiling.span("msgwam.whole_run.scratch"):
-            plan = step_cuda.device_plan(n_per, n_members, ops, True)
-            qd, qr, qm = (torch.empty_like(dens) for _ in range(3))
-            r_prev = m_prev = dens_prop = None
-            if not ops.online:
-                r_prev, m_prev = torch.empty_like(dens), torch.empty_like(dens)
-            if not ops.online or relaunch:
-                dens_prop = torch.empty_like(dens)
-            work = step_cuda.scratch(plan, n, n_members, ops.n_tab - 1, device)
-        src = life.src if relaunch else (None,) * 4
-        with profiling.span(_launch_span(n_members)):
-            err = lib.msgwam_step_stream(
-                *ops.scalars, ops.n_tab, ops.c_pad, ops.w1, ops.w2,
-                *(x.data_ptr() for x in ops.frozen), act.data_ptr(), n_per,
-                n_members, dens.data_ptr(), r.data_ptr(), m.data_ptr(),
-                qd.data_ptr(), qr.data_ptr(), qm.data_ptr(),
-                _ptr(r_prev), _ptr(m_prev), _ptr(dens_prop),
-                uv.data_ptr(), ops.rhobar.data_ptr(), ops.pg.data_ptr(),
-                ops.inv_rho.data_ptr(), *(x.data_ptr() for x in work),
-                plan.blocks_per_member, n_steps, int(ops.online),
-                int(ops.prognostic), int(ops.faithful), int(life is not None),
-                *((life.m_max, life.face_lo, life.face_hi) if life
-                  else (0.0,) * 3),
-                *(_ptr(x) for x in src), _ptr(wind),
-                0 if wind is None else wind.shape[1], _ptr(tiers),
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-            _build.check(err, "msgwam_step_stream")
-    kernel = "K7" if n_members > 1 else "K6"
-    step_cuda.count_placement(kernel, plan, n_steps, n_members)
-    LAUNCHES[kernel] += 1
-    if dens_prop is None:
-        dens_prop = dens.clone()
-    return dens, r, m, uv, dens_prop, act
-
-
 def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
                           life: Lifecycle = None, wind=None,
                           n_members: int = 1, tiers=None):
-    """Plain PyTorch twin of one launch of K6/K7, with :func:`launch`'s
-    arguments: each member runs K5's twin
+    """Plain PyTorch twin of one launch of K5-K7, with
+    :func:`..step_cuda.launch`'s arguments: each member runs K5's twin
     (:func:`msgwam_tpu_torch.ops.step_cuda.step_resident_reference`) with
     the mask, the lifecycle and its rows of the wind table.  Returns new
     ``(dens, r, m, uv, dens_prop, act)`` and modifies nothing."""
@@ -146,42 +80,16 @@ def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
         cut = lambda x: x[sl]
         ops_e = ops._replace(frozen=tuple(map(cut, ops.frozen)),
                              active=ops.active[sl])
-        life_e = life
-        if life is not None and life.src is not None:
-            life_e = life._replace(src=tuple(map(cut, life.src)))
-        wind_e = None
-        if wind is not None:
-            wind_e = wind if wind.shape[1] == 2 else wind[:, 2 * e:2 * e + 2]
+        life_e = life if life is None or life.src is None else \
+            life._replace(src=tuple(map(cut, life.src)))
+        wind_e = (wind if wind is None or wind.shape[1] == 2
+                  else wind[:, 2 * e:2 * e + 2])
         outs.append(step_cuda.step_resident_reference(
             ops_e, dens[sl], r[sl], m[sl], uv[e], n_steps, act=act[sl].bool(),
             life=life_e, wind=wind_e, tiers=tiers))
     d, rr, mm, w, prop, a = (list(x) for x in zip(*outs))
     return (torch.cat(d), torch.cat(rr), torch.cat(mm), torch.stack(w),
             torch.cat(prop), torch.cat(a).to(act.dtype))
-
-
-def _launch_span(n_members: int) -> str:
-    return "msgwam.launch.k7" if n_members > 1 else "msgwam.launch.k6"
-
-
-def _launcher(device, n_members: int):
-    """The launch of K6 (K7 with ``n_members > 1``) on ``device``, or for
-    CPU tensors its twin in the launch's span; either adds to the
-    kernel's tier and placement counts while a profiler records."""
-    kernel = "K7" if n_members > 1 else "K6"
-    tiers = profiling.tier_counter(device, kernel)
-    if device.type == "cuda":
-        return functools.partial(launch, tiers=tiers)
-
-    def twin(ops, dens, r, m, uv, act, n_steps, *args, **kwargs):
-        with profiling.span(_launch_span(n_members)):
-            out = step_stream_reference(ops, dens, r, m, uv, act, n_steps, *args,
-                                        tiers=tiers, **kwargs)
-        plan = step_cuda.mirror_plan(dens.shape[0] // n_members, n_members, ops)
-        step_cuda.count_placement(kernel, plan, n_steps, n_members)
-        return out
-
-    return twin
 
 
 def _wind_table(wind_fn, t0, ci: int, S: int, dt, n_tab: int, device):
@@ -206,32 +114,41 @@ def _check_relaunch_template(src_rays, src_statics, rays, statics):
     """The kernel keeps every ray's frozen fields for the whole run and
     refills only dens, r, m and the mask; a template that changes a frozen
     field raises and names it."""
-    for fname, a, b in (
-        ("k", src_rays.k, rays.k),
-        ("l", src_rays.l, rays.l),
-        ("dr", src_rays.dr, rays.dr),
-        ("dm", src_rays.dm, rays.dm),
-        ("phi", src_rays.phi, rays.phi),
-        ("dkk", src_statics.dkk, statics.dkk),
-        ("dll", src_statics.dll, statics.dll),
-        ("rr_mm_area", src_statics.rr_mm_area, statics.rr_mm_area),
-    ):
-        if not torch.equal(a.to(torch.float32).reshape(b.shape),
-                           b.to(torch.float32)):
-            raise ValueError(
-                "in-kernel relaunch keeps the per-ray frozen fields "
-                f"resident for the whole run, but the template's {fname!r} "
-                "differs from the running state's; use simulate() for "
-                "templates that change a ray's frozen properties")
+    for src, own, names in ((src_rays, rays, ("k", "l", "dr", "dm", "phi")),
+                            (src_statics, statics, ("dkk", "dll", "rr_mm_area"))):
+        for fname in names:
+            a, b = (getattr(x, fname).to(torch.float32) for x in (src, own))
+            if not torch.equal(a.reshape(b.shape), b):
+                raise ValueError(
+                    "in-kernel relaunch keeps the per-ray frozen fields "
+                    f"resident for the whole run, but the template's {fname!r} "
+                    "differs from the running state's; use simulate() for "
+                    "templates that change a ray's frozen properties")
 
 
 def _template(src, like):
-    """The relaunch slabs ``(dens, r, m, active)`` of a template, flat and
-    on the state's device."""
+    """The relaunch rows ``(dens, r, m, active)`` of a template: float32
+    ``(4, n)``, flat, on the state's device."""
     rays, statics = src
-    f = lambda x: x.reshape(-1).to(like.device).contiguous()
-    return (f(rays.dens.to(torch.float32)), f(rays.r.to(torch.float32)),
-            f(rays.m.to(torch.float32)), f(statics.active))
+    return torch.stack([x.reshape(-1).to(like.device, torch.float32)
+                        for x in (rays.dens, rays.r, rays.m, statics.active)])
+
+
+def _winds(wind_fn, t0, run, bg, like):
+    """Launch ``ci``'s wind table as a function of ``ci``: ``wind_fn``'s
+    rows, or for a sequence of one function per member theirs side by side
+    (``(S, 2 E, n_tab)``); ``None`` without a wind."""
+    if wind_fn is None:
+        return None
+    fns = wind_fn if isinstance(wind_fn, (list, tuple)) else [wind_fn]
+    n_tab = bg.centers.shape[0]
+
+    def table(ci):
+        rows = [_wind_table(f, t0, ci, run.save_every, run.dt, n_tab, like.device)
+                for f in fns]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+
+    return table
 
 
 def _guards(state, cfg, run, name: str):
@@ -246,25 +163,6 @@ def _guards(state, cfg, run, name: str):
     return do_cull, bool(cfg.relaunch)
 
 
-def _sort(slabs, act, r, slot):
-    """The launch sort: one stable sort of the heights with inactive slots
-    last, and one gather of every per-ray slab stacked (the int32 slot ids
-    ride along as float32 bits, the mask as 0/1)."""
-    key = torch.where(act.bool(), r, torch.full_like(r, math.inf))
-    order = torch.sort(key, stable=True).indices
-    stacked = torch.stack([*slabs, act.to(torch.float32),
-                           slot.view(torch.float32)])[:, order]
-    return (tuple(stacked[:-2]), stacked[-2].to(act.dtype),
-            stacked[-1].contiguous().view(torch.int32))
-
-
-def _unsort(slot, slabs):
-    """Per-ray slabs back in the caller's slot order."""
-    inv = torch.argsort(slot)
-    return tuple(x[inv] for x in slabs)
-
-
-@profiling.spanned("msgwam.whole_run")
 def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
                        tile_rows: int = 0, source=None, wind_fn=None,
                        t0: float = 0.0, launch_sort=None, observe=None,
@@ -296,111 +194,30 @@ def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
     (the TPU's streamed tile height).  Forward only, as the JAX package's
     streaming path is: ``simulate`` differentiates the lifecycle."""
     del tile_rows
-    with profiling.span("msgwam.whole_run.prepare"):
-        do_cull, do_relaunch = _guards(state, cfg, run, "simulate_streaming")
-        if do_relaunch and source is None:
-            raise ValueError("cfg.relaunch requires a source template")
-        keyed_source = callable(source)
-        if keyed_source and source_key is None:
-            raise ValueError("a callable source requires source_key")
-        _build.forward_only("simulate_streaming", "simulate()", state, statics,
-                            bg)
-        rhs_cuda.check_inputs(state, statics, bg, "simulate_streaming",
-                              step_cuda.MAX_PAD)
-        from ..models.integrate import StepAux
-
-        rays, mean = state.rays, state.mean
-        n = rays.r.shape[0]
-        device = rays.r.device
-        cfg = rhs_cuda.apply_champion(cfg, n)
-        ops = step_cuda.operands(state, statics, bg, cfg, run.dt)
-        chunk = _launcher(device, 1)
-        use_sort = bool(launch_sort)
-        S = run.save_every
-        n_tab = bg.centers.shape[0]
-
-        bounds = lifecycle_for(bg, cfg) if do_cull else None
-        fixed_src = None
-        if do_relaunch and not keyed_source:
-            _check_relaunch_template(*source, rays, statics)
-            fixed_src = _template(source, rays.r)
-
-        statics0 = statics
-        frozen, active = ops.frozen, statics.active
-        dens, r, m = rays.dens.clone(), rays.r.clone(), rays.m.clone()
-        uv = torch.stack([mean.u, mean.v])[None].contiguous()
-        act = statics.active.to(torch.uint8)      # the kernel's byte mask
-        slot = torch.arange(n, dtype=torch.int32, device=device)
-
-    def to_state(dens, r, m, uv):
-        return State(rays._replace(dens=dens, r=r, m=m),
-                     MeanState(uv[0, 0].clone(), uv[0, 1].clone()))
-
-    frames = []
-    if include_t0:
-        with profiling.span("msgwam.whole_run.frame"):
-            frames.append((state, statics0.active, rays.dens) if observe is None
-                          else observe(state, statics0,
-                                       StepAux(dens_prop=rays.dens)))
-    with torch.no_grad():
-        for ci in range(run.n_steps // S):
-            src = fixed_src
-            if use_sort:
-                with profiling.span("msgwam.whole_run.sort"):
-                    slabs = (dens, r, m, *frozen)
-                    if src:
-                        slabs += (*src[:3], src[3].to(torch.float32))
-                    slabs, act, slot = _sort(slabs, act, r, slot)
-                    dens, r, m = slabs[:3]
-                    frozen = slabs[3:11]
-                    if src:
-                        src = fixed_src = (*slabs[11:14], slabs[14].bool())
-                    active = act.bool()
-            if keyed_source:
-                with profiling.span("msgwam.whole_run.template"):
-                    t_rays, t_statics = source(source_key)
-                    _check_relaunch_template(t_rays, t_statics, rays, statics0)
-                    src = _template((t_rays, t_statics), rays.r)
-                    if use_sort:
-                        src = tuple(x[slot.long()] for x in src)
-            life = bounds._replace(src=src if do_relaunch else None) \
-                if do_cull else None
-            wind = None
-            if wind_fn is not None:
-                with profiling.span("msgwam.whole_run.wind_table"):
-                    wind = _wind_table(wind_fn, t0, ci, S, run.dt, n_tab, device)
-            ops_c = ops._replace(frozen=tuple(x.contiguous() for x in frozen),
-                                 active=active.contiguous())
-            dens, r, m, uv, prop, act = chunk(
-                ops_c, dens.contiguous(), r.contiguous(), m.contiguous(), uv,
-                act.contiguous(), S, life, wind)
-            with profiling.span("msgwam.whole_run.frame"):
-                frame = (dens, r, m, prop, act)
-                if use_sort:
-                    frame = _unsort(slot, frame)
-                fd, fr, fm, fp, fa = (x.clone() for x in frame)
-                fstate = to_state(fd, fr, fm, uv)
-                fact = fa.bool() if do_cull else statics0.active
-                frames.append((fstate, fact, fp) if observe is None
-                              else observe(fstate, statics0._replace(active=fact),
-                                           StepAux(dens_prop=fp)))
-    with profiling.span("msgwam.whole_run.history"):
-        final = (dens, r, m, act)
-        if use_sort:
-            final = _unsort(slot, final)
-        fd, fr, fm, fa = (x.clone() for x in final)
-        final = to_state(fd, fr, fm, uv)
-        statics = statics0._replace(active=fa.bool()) if do_cull else statics0
-        history = tree_map(lambda *xs: torch.stack(xs), *frames)
-    out = (final, statics, history)
-    if return_final_perm:
-        out += (slot.long() if use_sort else torch.arange(n, device=device),)
-    return out
-
-
-def _flat(tree):
-    """Leading-member leaves ``(E, n)`` to flat ``(E n,)`` contiguous."""
-    return tree_map(lambda x: x.reshape(-1).contiguous(), tree)
+    do_cull, do_relaunch = _guards(state, cfg, run, "simulate_streaming")
+    if do_relaunch and source is None:
+        raise ValueError("cfg.relaunch requires a source template")
+    keyed_source = callable(source)
+    if keyed_source and source_key is None:
+        raise ValueError("a callable source requires source_key")
+    _build.forward_only("simulate_streaming", "simulate()", state, statics, bg)
+    rays = state.rays
+    template = draw = None
+    if keyed_source:
+        def draw():
+            t_rays, t_statics = source(source_key)
+            _check_relaunch_template(t_rays, t_statics, rays, statics)
+            return _template((t_rays, t_statics), rays.r)
+    elif do_relaunch:
+        _check_relaunch_template(*source, rays, statics)
+        template = _template(source, rays.r)
+    return step_cuda.whole_run(
+        state, statics, bg, cfg, run, "simulate_streaming", stream=True,
+        order="heights" if launch_sort else None,
+        life=lifecycle_for(bg, cfg) if do_cull else None, relaunch=do_relaunch,
+        template=template, draw=draw, wind=_winds(wind_fn, t0, run, bg, rays.r),
+        observe=observe, include_t0=include_t0,
+        return_final_perm=return_final_perm)
 
 
 def simulate_streaming_ensemble(states, statics, bg, cfg, run,
@@ -417,7 +234,8 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
     RayStatics)`` template pair; a callable source raises, as in the JAX
     package.  Float32, ``hprop=False``, online saturation.  Launches of at
     least ``step_cuda.ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays in
-    all run on each member's tiles in K5's order (:func:`_ensemble_kernel`).
+    all run on each member's tiles in K5's order (:func:`..step_cuda.
+    tile_order`).
 
     Returns ``(final_states, statics, mean_history)``: the final states with
     the member axis back, and the mean wind after every launch as a
@@ -444,17 +262,24 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
             "keyed (callable) sources are supported by the single-member "
             "simulate_streaming only; run members separately, or draw the "
             "stacked templates before the call")
-    rays, mean = states.rays, states.mean
-    E, n = rays.r.shape
-    per_member_wind = isinstance(wind_fn, (list, tuple))
-    if per_member_wind and len(wind_fn) != E:
+    rays = states.rays
+    E = rays.r.shape[0]
+    if isinstance(wind_fn, (list, tuple)) and len(wind_fn) != E:
         raise ValueError(
             f"per-member wind_fn sequence has {len(wind_fn)} entries "
             f"for {E} ensemble members")
+    template = None
+    if do_relaunch:
+        _check_relaunch_template(*sources, rays, statics)
+        template = _template(sources, rays.r)
     return adjoint.kernel_call(
-        functools.partial(_ensemble_kernel, cfg=cfg, run=run, sources=sources,
-                          wind_fn=wind_fn, t0=t0, do_cull=do_cull,
-                          do_relaunch=do_relaunch),
+        functools.partial(
+            step_cuda.whole_run, cfg=cfg, run=run,
+            name="simulate_streaming_ensemble", stream=True, members=True,
+            order="tiles", life=lifecycle_for(bg, cfg) if do_cull else None,
+            relaunch=do_relaunch, template=template,
+            wind=_winds(wind_fn, t0, run, bg, rays.r),
+            observe=lambda state, statics, aux: state.mean),
         functools.partial(_ensemble_plain, cfg=cfg, run=run, sources=sources,
                           wind_fn=wind_fn, t0=t0),
         states, statics, bg)
@@ -479,90 +304,3 @@ def _ensemble_plain(states, statics, bg, cfg, run, sources, wind_fn, t0):
     stack = lambda *xs: torch.stack(xs, dim=0)
     mean_hist = tree_map(lambda *xs: torch.stack(xs, dim=1), *means)
     return tree_map(stack, *finals), statics, mean_hist
-
-
-def member_tile_order(ops, r, m, active, n_members: int):
-    """K7's tile order: :func:`step_cuda.tile_order` within each member's
-    slot range ``[e n, (e + 1) n)`` of the flat member-major ``r``, ``m``
-    and ``active``, as flat slot indices, so that K7's blocks still find
-    each member's rays in its own range."""
-    n = r.shape[0] // n_members
-    order = step_cuda.tile_order(ops, r.view(n_members, n), m.view(n_members, n),
-                                 active.view(n_members, n))
-    offset = torch.arange(0, n_members * n, n, device=r.device)
-    return (order + offset[:, None]).reshape(-1)
-
-
-def _ensemble_kernel(states, statics, bg, cfg, run, sources, wind_fn, t0,
-                     do_cull, do_relaunch):
-    """The K7 launches of :func:`simulate_streaming_ensemble`.  From
-    ``step_cuda.ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays in all,
-    each launch runs on :func:`member_tile_order`'s slots, gathered from
-    the caller-order state the last launch left, and one ``index_copy_``
-    puts ``(dens, r, m, active)`` back in the caller's slots after it, as
-    K5's launch loop does."""
-    rays, mean = states.rays, states.mean
-    E, n = rays.r.shape
-    per_member_wind = isinstance(wind_fn, (list, tuple))
-    flat_rays, flat_statics = _flat(rays), _flat(statics)
-    flat_state = State(flat_rays, MeanState(mean.u[0], mean.v[0]))
-    rhs_cuda.check_inputs(flat_state, flat_statics, bg,
-                          "simulate_streaming_ensemble", step_cuda.MAX_PAD)
-    cfg = rhs_cuda.apply_champion(cfg, E * n)
-    ops = step_cuda.operands(flat_state, flat_statics, bg, cfg, run.dt)
-    device = flat_rays.r.device
-    chunk = _launcher(device, E)
-    src = None
-    if do_relaunch:
-        _check_relaunch_template(*sources, rays, statics)
-        src = _template(sources, flat_rays.r)
-    life = lifecycle_for(bg, cfg, src) if do_cull else None
-    S = run.save_every
-    n_tab = bg.centers.shape[0]
-    ordered = (S >= step_cuda.ORDER_MIN_STEPS
-               and E * n >= step_cuda.ORDER_MIN_RAYS)
-    if ordered:
-        frozen = torch.stack(ops.frozen)
-        if src:
-            template = torch.stack([*src[:3], src[3].to(torch.float32)])
-
-    dens, r, m = (x.clone() for x in (flat_rays.dens, flat_rays.r, flat_rays.m))
-    uv = torch.stack([mean.u, mean.v], dim=1).contiguous()     # (E, 2, n_tab)
-    act = flat_statics.active.to(torch.uint8)
-    history = []
-    with torch.no_grad():
-        for ci in range(run.n_steps // S):
-            wind = None
-            if per_member_wind:
-                wind = torch.cat([_wind_table(f, t0, ci, S, run.dt, n_tab, device)
-                                  for f in wind_fn], dim=1).contiguous()
-            elif wind_fn is not None:
-                wind = _wind_table(wind_fn, t0, ci, S, run.dt, n_tab, device)
-            tile_ops, tile_life, work = ops, life, (dens, r, m, act)
-            if ordered:
-                with profiling.span("msgwam.whole_run.sort"):
-                    order = member_tile_order(ops, r, m, act.bool(), E)
-                    slabs = torch.stack([dens, r, m, act.to(torch.float32)]
-                                        ).index_select(1, order)
-                    work = (*slabs[:3], slabs[3].to(torch.uint8))
-                    tile_ops = ops._replace(
-                        frozen=tuple(frozen.index_select(1, order)))
-                    if src:
-                        t = template.index_select(1, order)
-                        tile_life = life._replace(src=(*t[:3], t[3].bool()))
-            dens, r, m, uv, _, act = chunk(tile_ops, *work[:3], uv, work[3], S,
-                                           tile_life, wind, n_members=E)
-            profiling.add_order("K7", ordered)
-            with profiling.span("msgwam.whole_run.frame"):
-                if ordered:       # back to the caller's slots
-                    out = torch.stack([dens, r, m, act.to(torch.float32)])
-                    out = torch.empty_like(out).index_copy_(1, order, out)
-                    dens, r, m, act = (*out[:3], out[3].to(torch.uint8))
-                history.append(uv.clone())
-    member = lambda x: x.reshape(E, n)
-    final = State(rays._replace(dens=member(dens), r=member(r), m=member(m)),
-                  MeanState(uv[:, 0].clone(), uv[:, 1].clone()))
-    if do_cull:
-        statics = statics._replace(active=member(act.bool()))
-    huv = torch.stack(history)                                 # (chunks, E, 2, n_tab)
-    return final, statics, MeanState(huv[:, :, 0], huv[:, :, 1])

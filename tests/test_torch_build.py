@@ -20,8 +20,7 @@ from msgwam_tpu_torch.parallel import stack_ensemble
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
 KERNEL_ENTRIES = {"msgwam_project_plan", "msgwam_project", "msgwam_rhs_plan",
                   "msgwam_rhs_fused", "msgwam_rhs_windowed",
-                  "msgwam_step_resident_plan", "msgwam_step_resident",
-                  "msgwam_step_stream"}
+                  "msgwam_step_resident_plan", "msgwam_step_resident"}
 
 
 def _declarations():

@@ -213,8 +213,8 @@ def cuda_device():
 def test_k7_kernel_matches_twin_on_gpu(cuda_device, ordered, monkeypatch):
     """K7 with the lifecycle and per-member winds against its twin on the
     CPU: 3e-5 relative to the maximum, masks equal; with each member's
-    tiles ordered before every launch (``step_cuda_stream.
-    member_tile_order``) and without."""
+    tiles ordered before every launch (``step_cuda.tile_order`` with
+    ``n_members``) and without."""
     monkeypatch.setattr(step_cuda, "ORDER_MIN_STEPS", 0)
     monkeypatch.setattr(step_cuda, "ORDER_MIN_RAYS", 0 if ordered else 1 << 40)
     cfg, bg, members = _members(cull=True, relaunch=True, prognostic_mean=False)

@@ -1,4 +1,4 @@
-"""K7's tile order (``step_cuda_stream.member_tile_order``): each member's
+"""K7's tile order (``step_cuda.tile_order`` with ``n_members``): each member's
 slots in K5's (height cell, m) order, within the member's own slot range,
 before every launch of ``step_cuda.ORDER_MIN_STEPS`` steps and
 ``ORDER_MIN_RAYS`` rays in all, and the state back in the caller's slots
@@ -17,9 +17,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import msgwam_tpu_torch as mtt
 import test_torch_ensemble as ens
-from msgwam_tpu_torch.ops import step_cuda, step_cuda_stream
-from msgwam_tpu_torch.ops.step_cuda_stream import (member_tile_order,
-                                                   simulate_streaming_ensemble)
+from msgwam_tpu_torch.ops import step_cuda
+from msgwam_tpu_torch.ops.step_cuda_stream import simulate_streaming_ensemble
 from msgwam_tpu_torch.parallel import stack_ensemble
 from msgwam_tpu_torch.state import MeanState, State
 from msgwam_tpu_torch.utils import profiling
@@ -120,7 +119,7 @@ def test_member_order_is_tile_order_member_by_member(n_members, n):
     state, statics = members[0]
     ops = step_cuda.operands(state, statics, bg, cfg, RUN.dt)
     r, m, active = _random_column(n_members, n, seed=n)
-    order = member_tile_order(ops, r, m, active, n_members)
+    order = step_cuda.tile_order(ops, r, m, active, n_members)
     assert order.shape == (n_members * n,)
     for e in range(n_members):
         sl = slice(e * n, (e + 1) * n)
@@ -135,13 +134,13 @@ def test_k7_orders_from_the_caller_order_state(monkeypatch):
     from its final state."""
     _order_tiles(monkeypatch)
     cfg, bg, states, statics, kw = _case("plain")
-    seen, order = [], step_cuda_stream.member_tile_order
+    seen, order = [], step_cuda.tile_order
 
     def spy(ops, r, m, active, n_members):
         seen.append(r.clone())
         return order(ops, r, m, active, n_members)
 
-    monkeypatch.setattr(step_cuda_stream, "member_tile_order", spy)
+    monkeypatch.setattr(step_cuda, "tile_order", spy)
     one = mtt.RunConfig(dt=120.0, n_steps=3, save_every=3)
     straight = simulate_streaming_ensemble(states, statics, bg, cfg, RUN)
     half = simulate_streaming_ensemble(states, statics, bg, cfg, one)

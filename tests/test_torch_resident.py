@@ -253,9 +253,9 @@ def test_k5_tile_order_is_a_function_of_the_state(monkeypatch):
     tcfg = _tcfg(cfg)
     seen, tile_order = [], step_cuda.tile_order
 
-    def spy(ops, r, m, active):
+    def spy(ops, r, m, active, n_members):
         seen.append((r.clone(), m.clone(), active))
-        return tile_order(ops, r, m, active)
+        return tile_order(ops, r, m, active, n_members)
 
     monkeypatch.setattr(step_cuda, "tile_order", spy)
     two = mtt.RunConfig(dt=120.0, n_steps=2 * 6, save_every=6)

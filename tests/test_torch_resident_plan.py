@@ -11,6 +11,7 @@ import torch
 import msgwam_tpu_torch as mtt
 from msgwam_tpu_torch.ops import step_cuda, step_cuda_stream
 from msgwam_tpu_torch.parallel import stack_ensemble
+from msgwam_tpu_torch.state import tree_map
 
 TOL = 3e-5
 CAPACITY_TILES = 132 * 4 * 8        # 4 blocks per SM, 1 + 7 tiles each online
@@ -135,8 +136,9 @@ def test_k5_on_both_sides_of_the_capacity_on_gpu(cuda_device, n):
     assert (plan.on_chip_share == 1.0) == (n <= 1_081_344)
     init = [state.rays.dens, state.rays.r, state.rays.m,
             torch.stack([state.mean.u, state.mean.v])]
-    got = step_cuda.launch(ops, *[x.clone() for x in init], 3)
-    again = step_cuda.launch(ops, *[x.clone() for x in init], 3)
+    act = statics.active.to(torch.uint8)
+    got = step_cuda.launch(ops, *[x.clone() for x in init], act, 3)
+    again = step_cuda.launch(ops, *[x.clone() for x in init], act, 3)
     want = step_cuda.step_resident_reference(ops, *init, 3)
     for w, g in zip((*want[:3], want[3][0]), (*got[:3], got[3][0])):
         assert _rel(w, g) < TOL
@@ -149,7 +151,7 @@ def test_k7_eight_members_on_gpu(cuda_device):
     members = [(state._replace(rays=state.rays._replace(
         dens=state.rays.dens * (1.0 + 0.1 * e))), statics) for e in range(8)]
     states, stats = stack_ensemble(members)
-    flat = step_cuda_stream._flat
+    flat = lambda tree: tree_map(torch.flatten, tree)
     fstate = mtt.State(flat(states.rays), mtt.MeanState(states.mean.u[0],
                                                         states.mean.v[0]))
     fstat = flat(stats)
@@ -157,8 +159,8 @@ def test_k7_eight_members_on_gpu(cuda_device):
     uv = torch.stack([states.mean.u, states.mean.v], dim=1).contiguous()
     act = fstat.active.to(torch.uint8)
     base = (fstate.rays.dens, fstate.rays.r, fstate.rays.m)
-    got = step_cuda_stream.launch(ops, *[x.clone() for x in (*base, uv)],
-                                  act.clone(), 3, n_members=8)
+    got = step_cuda.launch(ops, *[x.clone() for x in (*base, uv)],
+                           act.clone(), 3, n_members=8, stream=True)
     want = step_cuda_stream.step_stream_reference(ops, *base, uv, act, 3,
                                                   n_members=8)
     for w, g in zip((*want[:3], want[3][:, 0]), (*got[:3], got[3][:, 0])):

@@ -67,11 +67,13 @@ def test_off_without_a_profiler():
                for k in profiling.KERNELS)
 
 
-@pytest.mark.parametrize("kernel", ["K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K5", "K6", "K7"])
 def test_whole_run_spans_nest_every_launch(kernel):
     """A twin day of n launches: n launch spans, nested in one
     ``msgwam.whole_run`` with its prepare, frames and history (K6: a wind
-    table a launch), and every tile window of every stage counted."""
+    table a launch), and every tile window of every stage counted.  K7 is
+    an ensemble day of two members through ``parallel.ensemble_simulate``
+    (``backend="mega"``)."""
     kw = {}
     if kernel == "K6":
         kw = dict(cull=True, relaunch=True, m_max=2 * 3.141592653589793 / 300.0)
@@ -83,9 +85,15 @@ def test_whole_run_spans_nest_every_launch(kernel):
         extra = dict(source=(state.rays, statics),
                      wind_fn=lambda t: (u0 * torch.cos(t / 43200.0),
                                         torch.zeros_like(u0)))
+    members = 2 if kernel == "K7" else 1
     profiling.reset_counts()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        mtt.simulate_resident(state, statics, bg, cfg, run, **extra)
+        if kernel == "K7":
+            mtt.parallel.ensemble_simulate(
+                *mtt.parallel.stack_ensemble([(state, statics)] * members), bg,
+                cfg, run, backend="mega")
+        else:
+            mtt.simulate_resident(state, statics, bg, cfg, run, **extra)
     spans = _spans(prof)
     names = Counter(e.name for e in spans)
     assert names[f"msgwam.launch.{kernel.lower()}"] == 3
@@ -96,7 +104,7 @@ def test_whole_run_spans_nest_every_launch(kernel):
     outer = next(e for e in spans if e.name == "msgwam.whole_run")
     assert all(_inside(e, outer) for e in spans)
     assert sum(profiling.counts()[kernel].values()) == \
-        6 * 3 * (N // ray_physics.TILE)
+        6 * 3 * members * (N // ray_physics.TILE)
 
 
 def test_k5_orders_its_tiles_in_a_sort_span_a_launch(monkeypatch):

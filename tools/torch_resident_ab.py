@@ -56,6 +56,7 @@ def worker() -> dict:
     from msgwam_tpu_torch import _build
     from msgwam_tpu_torch.ops import step_cuda, step_cuda_stream
     from msgwam_tpu_torch.parallel import ensemble_simulate, stack_ensemble
+    from msgwam_tpu_torch.state import tree_map
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -109,14 +110,15 @@ def worker() -> dict:
         ops = step_cuda.operands(state, statics, bg, cfg, DT)
         init = [state.rays.dens, state.rays.r, state.rays.m,
                 torch.stack([state.mean.u, state.mean.v])]
+        act = statics.active.to(torch.uint8)
         spread = [x.clone() for x in init]
         for _ in range(DAY // 72):
-            step_cuda.launch(ops, *spread, 72)
+            step_cuda.launch(ops, *spread, act, 72)
         torch.cuda.synchronize()
         for label, st in (("launch", init), ("spread", spread)):
             for prog in (True, False):
                 o = ops._replace(prognostic=prog)
-                ms = samples(lambda w: step_cuda.launch(o, *w, STEPS), st)
+                ms = samples(lambda w: step_cuda.launch(o, *w, act, STEPS), st)
                 res[f"k5_{n}_{label}_prog{int(prog)}_ms_per_step"] = [
                     x / STEPS for x in ms]
 
@@ -142,19 +144,20 @@ def worker() -> dict:
                       torch.zeros_like(centers))
     ops3 = step_cuda.operands(s3, st3, bg3, cfg3, DT)
     src = step_cuda_stream._template((s3.rays, st3), s3.rays.r)
-    life = step_cuda_stream.lifecycle_for(bg3, cfg3, src)
+    life = step_cuda_stream.lifecycle_for(bg3, cfg3, (*src[:3], src[3].bool()))
     table = step_cuda_stream._wind_table(wind, 0.0, 0, STEPS, DT,
                                          bg3.centers.shape[0], dev)
     init3 = [s3.rays.dens, s3.rays.r, s3.rays.m,
              torch.stack([s3.mean.u, s3.mean.v])[None].contiguous(),
              st3.active.to(torch.uint8)]
     res["k6_ms_per_step"] = [x / STEPS for x in samples(
-        lambda w: step_cuda_stream.launch(ops3, *w, STEPS, life, table), init3)]
+        lambda w: step_cuda.launch(ops3, *w, STEPS, 1, life, table, stream=True),
+        init3)]
 
     # K7 on configs[4]: 8 x 125,000, prognostic mean, no lifecycle
     cfg4, bg4, s4, st4 = setup(125_000, window_cells=24)
     states, statics4 = stack_ensemble([(s4, st4)] * 8)
-    flat = step_cuda_stream._flat
+    flat = lambda tree: tree_map(torch.flatten, tree)
     fstate = mtt.State(flat(states.rays), mtt.MeanState(s4.mean.u, s4.mean.v))
     fstat = flat(statics4)
     ops4 = step_cuda.operands(fstate, fstat, bg4, cfg4, DT)
@@ -162,7 +165,8 @@ def worker() -> dict:
              torch.stack([states.mean.u, states.mean.v], dim=1).contiguous(),
              fstat.active.to(torch.uint8)]
     res["k7_ms_per_step"] = [x / STEPS for x in samples(
-        lambda w: step_cuda_stream.launch(ops4, *w, STEPS, n_members=8), init4)]
+        lambda w: step_cuda.launch(ops4, *w, STEPS, n_members=8, stream=True),
+        init4)]
     ensemble_simulate(states, statics4, bg4, cfg4,
                       mtt.RunConfig(dt=DT, n_steps=2, save_every=1), backend="mega")
     days = []

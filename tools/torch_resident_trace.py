@@ -150,13 +150,14 @@ def main() -> int:
         ops = step_cuda.operands(state, statics, bg, cfg, 120.0)
         init = [rays.dens.clone(), rays.r.clone(), rays.m.clone(),
                 torch.stack([state.mean.u, state.mean.v])]
+        act = statics.active.to(torch.uint8)
         if spread:
             for _ in range(10):
-                step_cuda.launch(ops, *init, 72)
+                step_cuda.launch(ops, *init, act, 72)
         for prog in (True, False):
             o = ops._replace(prognostic=prog)
             for _ in range(2):
-                step_cuda.launch(o, *[x.clone() for x in init], 10)
+                step_cuda.launch(o, *[x.clone() for x in init], act, 10)
                 torch.cuda.synchronize()
             plan = seen["plan"]
             nt, na = plan.tile_blocks, plan.blocks_per_member

@@ -15,8 +15,9 @@ its own with ``PATH`` first on ``sys.path``.  A run measures:
   where the checkout has ``step_cuda.ORDER_MIN_STEPS`` and
   ``ORDER_MIN_RAYS``, once with the order forced on and once off;
 * where it has ``step_cuda.tile_order``, the order's own device time a
-  launch (key, sort, the gathers and the scatter back; CUDA events behind
-  a sleep kernel) and its host time, at each of ``N_RAYS``;
+  launch (key, sort, the gather of the stacked slab and the scatter back,
+  as ``step_cuda.whole_run`` makes them; CUDA events behind a sleep
+  kernel) and its host time, at each of ``N_RAYS``;
 * ``python -m msgwam_tpu_torch run --preset fast --kernels mega`` in
   process (72 launches of 10 steps at 1e5), the best of ``REPS`` after a
   warm-up.
@@ -114,16 +115,16 @@ def worker() -> dict:
             cfg, bg, state, statics = setup(n, True)
             ops = step_cuda.operands(state, statics, bg, cfg, DT)
             rays = state.rays
-            cur = torch.stack([rays.dens, rays.r, rays.m])
-            frozen = torch.stack(ops.frozen)
+            slab = torch.stack([x.to(torch.float32) for x in (
+                rays.dens, rays.r, rays.m, statics.active, *ops.frozen)])
 
             def once():
-                order = step_cuda.tile_order(ops, cur[1], cur[2], ops.active)
-                frozen.index_select(1, order)
-                ops.active.index_select(0, order)
-                work = cur.index_select(1, order)
-                out = torch.cat([work, work[:1]])
-                return torch.empty_like(out).index_copy_(1, order, out)
+                order = step_cuda.tile_order(ops, slab[1], slab[2], ops.active)
+                cur = slab.index_select(1, order)
+                out = torch.cat([cur[:4], cur[:1]])
+                out = torch.empty_like(out).index_copy_(1, order, out)
+                slab[:4].copy_(out[:4])
+                return out
 
             reps = 20
             dev_ms, host_ms = [], []
