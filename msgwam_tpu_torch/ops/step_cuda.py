@@ -20,9 +20,12 @@ finite-difference rates (quirk 2 included) after the third stage.
 The whole-run layer is one loop, :func:`whole_run`: ``n_steps //
 save_every`` launches, each :func:`launch` on the card or the plain twin
 for CPU tensors (:func:`run_launch`), plan and scratch built once per run.
-:func:`simulate_resident` (K5) and the entry points of K6 and K7 hand it
-what their route adds, as data, and a slot policy.  K5 and K7 order their
-own tiles: a tile's deposit and windows cost what its rays span in cells
+From its checks to its return the loop never waits on the card (the grid's
+scalars come from a host copy, :func:`host_list`), so on the card each
+launch queues behind the one still running.  :func:`simulate_resident`
+(K5) and the entry points of K6 and K7 hand it what their route adds, as
+data, and a slot policy.  K5 and K7 order their own tiles: a tile's
+deposit and windows cost what its rays span in cells
 (``csrc/deposit.cuh``), and rays of different vertical wavenumbers part at
 different group velocities, so before every launch of at least
 ``ORDER_MIN_STEPS`` steps and ``ORDER_MIN_RAYS`` rays the slots go in
@@ -55,6 +58,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
 from ..constants import ROT_EARTH
@@ -94,12 +98,31 @@ class Operands(NamedTuple):
     faithful: bool
 
 
+# tensor -> (its version, its values as a host list): the grid's host copy
+_HOST_LISTS = WeakIdKeyDictionary()
+
+
+def host_list(x) -> list:
+    """``x.tolist()``, read from the device once per tensor and in-place
+    edit: kept while ``x`` lives, keyed by its identity and checked against
+    its version counter (inference tensors, which have none, are read
+    every call).  The grid's scalars come from here, so a launch loop's
+    later runs on one background wait on nothing."""
+    if x.is_inference():
+        return x.tolist()
+    got = _HOST_LISTS.get(x)
+    if got is None or got[0] != x._version:
+        got = _HOST_LISTS[x] = (x._version, x.tolist())
+    return got[1]
+
+
 def operands(state, statics, bg, cfg, dt) -> Operands:
-    """The launch operands for a checked float32 state."""
+    """The launch operands for a checked float32 state (the grid's
+    scalars from :func:`host_list`)."""
     n_tab = bg.centers.shape[0]
     c_pad = rhs_cuda.c_pad_for(n_tab)
     w1, w2 = rhs_cuda.resolve_window_cells(cfg, c_pad)
-    centers, faces = bg.centers.tolist(), bg.faces.tolist()
+    centers, faces = host_list(bg.centers), host_list(bg.faces)
     rdiv = 1.0 if cfg.faithful_offline_rates else float(dt)
     scalars = (centers[0], centers[1] - centers[0], faces[1], faces[1] - faces[0],
                float(dt), float(cfg.bvf), float(cfg.kappa),
@@ -553,7 +576,9 @@ def whole_run(state, statics, bg, cfg, run, name: str, stream: bool = False,
     ``name`` is the entry point's.  A route adds, as data: ``life`` the
     cull bounds, ``relaunch`` from ``template`` (a fixed template's float32
     ``(4, n)`` rows ``(dens, r, m, active)``) or ``draw()`` (a keyed one's,
-    drawn each launch), and ``wind(ci)``, launch ``ci``'s wind table.  The
+    drawn each launch), and ``wind(ci)``, launch ``ci``'s wind table.  On
+    the card nothing here waits on it: a route that hands it data that
+    does (a keyed template's check) waits there alone.  The
     slot policy ``order`` is ``"tiles"`` (K5, K7: from ``ORDER_MIN_STEPS``
     steps and ``ORDER_MIN_RAYS`` rays each launch in :func:`tile_order`
     from the caller-order state, restored after it), ``"heights"`` (K6's

@@ -15,8 +15,12 @@ streaming kernel does (``step_pallas_stream.py:1052``).
 
 The entry points check their route and hand it as data to K5's launch loop
 (:func:`msgwam_tpu_torch.ops.step_cuda.whole_run`): the cull bounds, a
-fixed template or keyed ones drawn each launch, each launch's wind table
-(:func:`_wind_table`), and K6's launch sort or K7's tile order.
+fixed template or keyed ones drawn each launch, each launch's rows of the
+run's wind table (:func:`_winds`), and K6's launch sort or K7's tile
+order.  None of it waits on the card: the bounds come from the grid's host
+copy (:func:`..step_cuda.host_list`), the wind table is built once a run
+with no host-to-device copy, and a fixed template's check reads one
+device flag vector; so each launch queues behind the one still running.
 
 Not ported, and why:
 
@@ -41,7 +45,9 @@ Float32 only (a float64 state raises ``TypeError``), ``hprop=False``
 (else ``ValueError``), the lifecycle with online saturation only.  For CPU
 tensors each launch runs the plain twin :func:`step_stream_reference`;
 ``LAUNCHES`` counts kernel launches, K6's (one member) and K7's apart.
-Spans and counts as K5's loop keeps them (``msgwam.launch.k6``/``k7``).
+Spans and counts as K5's loop keeps them (``msgwam.launch.k6``/``k7``),
+and the wind tables built and the launches that read one
+(``profiling.counts()["wind"]``).
 """
 
 from __future__ import annotations
@@ -52,17 +58,23 @@ import torch
 
 from .. import _build
 from ..state import tree_map
+from ..utils import profiling
 from . import adjoint, step_cuda
 from .step_cuda import Lifecycle
 
 LAUNCHES = {"K6": 0, "K7": 0}
+# The most a run's wind table may hold at once, in bytes: a longer run's is
+# built in chunks of whole launches, each one vmap of ``wind_fn``.
+WIND_TABLE_BYTES = 64 << 20
 
 
 def lifecycle_for(bg, cfg, src=None) -> Lifecycle:
     """The cull bounds in float32, as the kernel compares them, and the
-    relaunch template ``(dens, r, m, active)``."""
+    relaunch template ``(dens, r, m, active)``; the faces from their host
+    copy (:func:`..step_cuda.host_list`)."""
     f32 = lambda x: float(torch.tensor(float(x), dtype=torch.float32))
-    return Lifecycle(f32(cfg.m_max), f32(bg.faces[0]), f32(bg.faces[-1]), src)
+    faces = step_cuda.host_list(bg.faces)
+    return Lifecycle(f32(cfg.m_max), f32(faces[0]), f32(faces[-1]), src)
 
 
 def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
@@ -92,20 +104,28 @@ def step_stream_reference(ops, dens, r, m, uv, act, n_steps: int,
             torch.cat(prop), torch.cat(a).to(act.dtype))
 
 
-def _wind_table(wind_fn, t0, ci: int, S: int, dt, n_tab: int, device):
-    """The ``(S, 2, n_tab)`` float32 wind rows of launch ``ci``: ``wind_fn``
-    at ``t = t0 + (ci S + j) dt`` in float32, as the scan path evaluates it
-    at the start of each step; scalar returns are broadcast.  One call of
-    ``wind_fn`` vectorised over the launch's times by ``torch.func.vmap``,
-    as the JAX package ``jax.vmap``s it."""
-    f32 = lambda x: torch.tensor(float(x), dtype=torch.float32, device=device)
-    ts = f32(t0) + torch.arange(ci * S, ci * S + S, dtype=torch.float32,
-                                device=device) * f32(dt)
+def _wind_table(wind_fn, t0, ci: int, S: int, dt, n_tab: int, device,
+                n_launches: int = 1):
+    """The ``(n_launches S, 2, n_tab)`` float32 wind rows of launches
+    ``ci`` .. ``ci + n_launches - 1``: ``wind_fn`` at ``t = t0 + (ci S + j)
+    dt`` in float32, as the scan path evaluates it at the start of each
+    step; scalar returns are broadcast.  One call of ``wind_fn`` vectorised
+    over the times by ``torch.func.vmap``, as the JAX package ``jax.vmap``s
+    it; the float32 scalars are made on ``device`` (``torch.full``, no
+    host-to-device copy), so the host does not wait on the card here, and
+    launch ``ci``'s rows are the same whatever ``n_launches`` is."""
+    f32 = lambda x: torch.full((), float(x), dtype=torch.float32, device=device)
+    ts = f32(t0) + torch.arange(ci * S, (ci + n_launches) * S,
+                                dtype=torch.float32, device=device) * f32(dt)
+
+    def row(w):
+        if isinstance(w, (int, float)):        # made on the card, not copied
+            w = torch.full((), w, dtype=torch.float32, device=device)
+        return torch.broadcast_to(torch.as_tensor(w, device=device),
+                                  (n_tab,)).to(torch.float32)
 
     def rows(t):
-        return torch.stack([
-            torch.broadcast_to(torch.as_tensor(w, device=device), (n_tab,))
-            .to(torch.float32) for w in wind_fn(t)])
+        return torch.stack([row(w) for w in wind_fn(t)])
 
     return torch.func.vmap(rows)(ts).contiguous()
 
@@ -113,17 +133,24 @@ def _wind_table(wind_fn, t0, ci: int, S: int, dt, n_tab: int, device):
 def _check_relaunch_template(src_rays, src_statics, rays, statics):
     """The kernel keeps every ray's frozen fields for the whole run and
     refills only dens, r, m and the mask; a template that changes a frozen
-    field raises and names it."""
-    for src, own, names in ((src_rays, rays, ("k", "l", "dr", "dm", "phi")),
-                            (src_statics, statics, ("dkk", "dll", "rr_mm_area"))):
-        for fname in names:
+    field raises and names the first that does.  The eight fields are
+    compared where they lie, as ``torch.equal`` compares them (a NaN
+    differs), and their flags read in one copy to the host."""
+    names, differs = [], []
+    for src, own, fields in ((src_rays, rays, ("k", "l", "dr", "dm", "phi")),
+                             (src_statics, statics, ("dkk", "dll", "rr_mm_area"))):
+        for fname in fields:
             a, b = (getattr(x, fname).to(torch.float32) for x in (src, own))
-            if not torch.equal(a.reshape(b.shape), b):
-                raise ValueError(
-                    "in-kernel relaunch keeps the per-ray frozen fields "
-                    f"resident for the whole run, but the template's {fname!r} "
-                    "differs from the running state's; use simulate() for "
-                    "templates that change a ray's frozen properties")
+            names.append(fname)
+            differs.append(torch.ne(a.reshape(b.shape), b).any())
+    flags = torch.stack(differs).tolist()
+    if any(flags):
+        raise ValueError(
+            "in-kernel relaunch keeps the per-ray frozen fields "
+            f"resident for the whole run, but the template's "
+            f"{names[flags.index(True)]!r} differs from the running state's; "
+            "use simulate() for templates that change a ray's frozen "
+            "properties")
 
 
 def _template(src, like):
@@ -134,19 +161,32 @@ def _template(src, like):
                         for x in (rays.dens, rays.r, rays.m, statics.active)])
 
 
-def _winds(wind_fn, t0, run, bg, like):
+def _winds(wind_fn, t0, run, bg, like, kernel: str):
     """Launch ``ci``'s wind table as a function of ``ci``: ``wind_fn``'s
     rows, or for a sequence of one function per member theirs side by side
-    (``(S, 2 E, n_tab)``); ``None`` without a wind."""
+    (``(S, 2 E, n_tab)``); ``None`` without a wind.  The run's table is
+    built at its first launch, ``[ci S, (ci + 1) S)`` of it a launch: one
+    vmap of each function over all the run's steps, or, where that would
+    pass ``WIND_TABLE_BYTES``, over as many whole launches as fit, built
+    when the first of them runs.  Each call counts a launch, and each
+    build a table, to ``kernel``'s ``profiling.counts()["wind"]``."""
     if wind_fn is None:
         return None
     fns = wind_fn if isinstance(wind_fn, (list, tuple)) else [wind_fn]
     n_tab = bg.centers.shape[0]
+    S, n_launches = run.save_every, run.n_steps // run.save_every
+    per_chunk = max(1, WIND_TABLE_BYTES // (S * 2 * len(fns) * n_tab * 4))
+    chunk = [None, None]          # the built chunk's first launch, its table
 
     def table(ci):
-        rows = [_wind_table(f, t0, ci, run.save_every, run.dt, n_tab, like.device)
-                for f in fns]
-        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+        c0 = ci - ci % per_chunk
+        new = chunk[0] != c0
+        if new:
+            rows = [_wind_table(f, t0, c0, S, run.dt, n_tab, like.device,
+                                min(per_chunk, n_launches - c0)) for f in fns]
+            chunk[:] = c0, rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+        profiling.add_wind(kernel, new)
+        return chunk[1][(ci - c0) * S:(ci - c0 + 1) * S]
 
     return table
 
@@ -215,7 +255,8 @@ def simulate_streaming(state, statics, bg, cfg, run, include_t0: bool = False,
         state, statics, bg, cfg, run, "simulate_streaming", stream=True,
         order="heights" if launch_sort else None,
         life=lifecycle_for(bg, cfg) if do_cull else None, relaunch=do_relaunch,
-        template=template, draw=draw, wind=_winds(wind_fn, t0, run, bg, rays.r),
+        template=template, draw=draw,
+        wind=_winds(wind_fn, t0, run, bg, rays.r, "K6"),
         observe=observe, include_t0=include_t0,
         return_final_perm=return_final_perm)
 
@@ -278,7 +319,8 @@ def simulate_streaming_ensemble(states, statics, bg, cfg, run,
             name="simulate_streaming_ensemble", stream=True, members=True,
             order="tiles", life=lifecycle_for(bg, cfg) if do_cull else None,
             relaunch=do_relaunch, template=template,
-            wind=_winds(wind_fn, t0, run, bg, rays.r),
+            wind=_winds(wind_fn, t0, run, bg, rays.r,
+                        step_cuda.kernel_name(True, E)),
             observe=lambda state, statics, aux: state.mean),
         functools.partial(_ensemble_plain, cfg=cfg, run=run, sources=sources,
                           wind_fn=wind_fn, t0=t0),

@@ -28,6 +28,8 @@ or any ``torch.profiler.profile``):
   launch's steps, its three stages and its members.
 * K5 and K7 count their launches, and those whose tiles they ordered
   first (``step_cuda.tile_order``; host integers, no device work).
+* K6 and K7 count the wind tables their runs build and the launches that
+  read one (``step_cuda_stream._winds``; host integers, no device work).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ TIER_SLOTS = 1024    # csrc/ray_physics.cuh kTierSlots: rows of a buffer
 WHOLE_RUN = ("K5", "K6", "K7")
 PLACES = ("on_chip", "streamed", "win_scratch")
 ORDERING = ("K5", "K7")
+WINDED = ("K6", "K7")
 
 _NULL = contextlib.nullcontext()
 # (kernel, device) -> the int64[TIER_SLOTS, 4] window-tier counts
@@ -54,6 +57,8 @@ _TIER_COUNTS = {}
 _PLACEMENT = {k: dict.fromkeys(PLACES, 0) for k in WHOLE_RUN}
 # kernel -> [launches with ordered tiles, launches], host integers
 _ORDERED = {k: [0, 0] for k in ORDERING}
+# kernel -> [wind tables built, launches that read one], host integers
+_WIND = {k: [0, 0] for k in WINDED}
 
 
 def recording() -> bool:
@@ -124,14 +129,25 @@ def add_order(kernel: str, ordered: bool) -> None:
         got[1] += 1
 
 
+def add_wind(kernel: str, built: bool) -> None:
+    """Count one launch of ``kernel`` (one of :data:`WINDED`) that reads a
+    wind table, and whether its table was built for it, while a profiler
+    session records; else nothing."""
+    if recording():
+        got = _WIND[kernel]
+        got[0] += int(built)
+        got[1] += 1
+
+
 def counts() -> dict:
     """``{"K3".."K7": {"full": n, "first": n, "second": n}}``, summed over
     devices, each kernel module's ``LAUNCHES`` under ``"launches"``,
     K5-K7's tile placement under ``"placement"``: ``{"K5".."K7":
     {"on_chip": n, "streamed": n, "win_scratch": n}}``, and K5's and K7's
     ordered launches under ``"ordered"``: ``{"K5": [ordered, launches],
-    "K7": [...]}``.  Reads the device: call it after the profiled
-    window."""
+    "K7": [...]}``, and K6's and K7's wind tables under ``"wind"``:
+    ``{"K6": [tables built, launches that read one], "K7": [...]}``.
+    Reads the device: call it after the profiled window."""
     from ..ops import (projection_cuda, rhs_cuda, rhs_cuda_windowed, step_cuda,
                        step_cuda_stream)
 
@@ -146,17 +162,18 @@ def counts() -> dict:
                   step_cuda_stream)}
     out["placement"] = {k: dict(v) for k, v in _PLACEMENT.items()}
     out["ordered"] = {k: list(v) for k, v in _ORDERED.items()}
+    out["wind"] = {k: list(v) for k, v in _WIND.items()}
     return out
 
 
 def reset_counts() -> None:
-    """Zero every window-tier, placement and order count (the buffers
-    stay)."""
+    """Zero every window-tier, placement, order and wind count (the
+    buffers stay)."""
     for buf in _TIER_COUNTS.values():
         buf.zero_()
     for got in _PLACEMENT.values():
         got.update(dict.fromkeys(PLACES, 0))
-    for got in _ORDERED.values():
+    for got in (*_ORDERED.values(), *_WIND.values()):
         got[:] = [0, 0]
 
 
