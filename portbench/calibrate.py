@@ -38,12 +38,15 @@ def readings(cell, seed: int, seconds: float, control: bool, device) -> dict:
     with torch.no_grad():
         driver.request(0, keep=False)
         driver.reset()
-        durations, hosts, items, window_s = run.serve(driver, seconds)
-    del driver, hosts
+        durations, answers, items, window_s = run.serve(driver, seconds)
+    failed = run.failed_requests(answers)
+    driver.close()
+    del driver, answers
     gc.collect()
     t0 = time.perf_counter()
     profiles = cell.limits["profiles"]
-    out = {"seed": seed, "requests": len(durations), "items": len(items),
+    out = {"seed": seed, "requests": len(durations), "failed": failed,
+           "items": len(items),
            "program": check.judge(items, s, profiles=profiles)}
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -16,7 +16,15 @@ judged numbers are, over all judged answers:
 
 * ``rays_off``: the share of ray slots whose density, height or
   wavenumber is off the reference's by more than ``RAY_TOL`` of its own
-  value, or whose activity differs.
+  value, or whose activity differs;
+* ``diag_gap`` (an answer that carries the program's diagnostics): the
+  widest gap between the program's wave action and wave-action flux of its
+  output rays and the reference's deposits of those same rays
+  (:mod:`.reference.diagnostics`, each ray's edges and cells in the
+  precision the rays are stored in), each over the reference's largest
+  value.  A
+  deposit of given rays is not chaotic, so it is taken of every such
+  answer.
 
 Runs of this model part over tens of steps, and two float64
 implementations as far as two float32 ones: the deposit of the reference
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from .reference import diagnostics as ref_diag
 from .reference import model as ref
 from .traffic import Item, Setup
 from . import inputs
@@ -76,13 +85,37 @@ def run_item(item: Item, s: Setup, dtype):
     """The reference's (or, in bfloat16, the control's) answer to
     ``item``: ``(rays, u, v)``."""
     p, col, fz, template, wind = _parts(s, dtype)
-    c = lambda x: x.to(dtype)
-    rays = ref.Rays(c(item.rays_in[0]), c(item.rays_in[1]), c(item.rays_in[2]),
-                    item.rays_in[3].bool())
-    u, v = (c(w.to(s.pop.r.device)) for w in item.wind_in)
+    rays = _rays(item.rays_in, s, dtype)
+    u, v = (w.to(device=s.pop.r.device, dtype=dtype) for w in item.wind_in)
     with torch.no_grad():
         return ref.advance(rays, fz, u, v, col, p, float(s.conf["dt"]),
                            item.n_steps, item.step0, wind, template)
+
+
+def _rays(rays, s: Setup, dtype) -> ref.Rays:
+    """``(dens, r, m, active)`` in ``dtype`` on the reference's device."""
+    c = lambda x: x.to(device=s.pop.r.device, dtype=dtype)
+    return ref.Rays(c(rays[0]), c(rays[1]), c(rays[2]),
+                    rays[3].to(s.pop.r.device).bool())
+
+
+def diag_gap(item: Item, s: Setup, control: bool = False) -> float:
+    """The widest gap of the wave action and of its flux of ``item``'s
+    output rays, each over the float64 reference's largest value: the
+    program's diagnostics, or with ``control`` the reference's deposits in
+    the control's dtype."""
+    p, col, fz, _, _ = _parts(s, torch.float64)
+    want = ref_diag.wave_action(_rays(item.rays_out, s, torch.float64), fz, col,
+                                p.bvf, stored=item.rays_out[1].dtype)
+    if control:
+        _, col_c, fz_c, _, _ = _parts(s, CONTROL_DTYPE)
+        got = ref_diag.wave_action(_rays(item.rays_out, s, CONTROL_DTYPE), fz_c,
+                                   col_c, p.bvf)
+    else:
+        got = item.diag
+    d = lambda x: x.to(device=s.pop.r.device, dtype=torch.float64)
+    return max(float((d(g) - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
 
 
 def columns(item: Item, s: Setup) -> list:
@@ -117,7 +150,7 @@ def gaps(item: Item, s: Setup, got, want, profiles: bool = True) -> dict:
     ``profiles`` false leaves out the flux and wind gaps."""
     p, col, fz, _, _ = _parts(s, torch.float64)
     d = lambda x: x.to(device=s.pop.r.device, dtype=torch.float64)
-    as64 = lambda r: ref.Rays(d(r[0]), d(r[1]), d(r[2]), r[3].bool())
+    as64 = lambda r: _rays(r, s, torch.float64)
     out = {"rays_off": rays_off(as64(got[0]), as64(want[0]))}
     if not profiles:
         return out
@@ -148,7 +181,10 @@ def judge(items, s: Setup, control: bool = False, profiles: str = "all") -> dict
                 got = (c_rays, c_u)
             else:
                 got = (col.rays_out, col.wind_out[0])
-            for k, v in gaps(col, cs, got, (want_rays, want_u), whole).items():
+            numbers = gaps(col, cs, got, (want_rays, want_u), whole)
+            if col.diag is not None:
+                numbers["diag_gap"] = diag_gap(col, cs, control)
+            for k, v in numbers.items():
                 v = float("inf") if v != v else v     # a NaN reads worst
                 worst[k] = max(worst.get(k, v), v)
     return worst

@@ -1,6 +1,7 @@
 """k5_roofline: K5's bound for the traced steps (portbench.roofline, from
 the rays' covered cells) over K5's device time in them; K5 runs the whole
-steps of a deployment without lifecycle or imposed wind."""
+steps of a deployment without lifecycle or imposed wind, in a day of whole
+runs or in the experiment driver's launches."""
 
 from portbench import roofline, trace
 
@@ -9,7 +10,7 @@ KERNEL = "step_resident_kernel"
 
 def read(ctx):
     d = ctx.driver
-    if ctx.trace is None or d.kind != "whole_run" or d.lifecycle:
+    if ctx.trace is None or d.kind == "stepwise" or d.lifecycle:
         return None
     t = trace.kernel_time_s(ctx.trace.device, KERNEL)
     if t <= 0:

@@ -137,18 +137,21 @@ def cg_r(k, l, m, phi, bvf):
     return -m * (om * om - ff * ff) / om / (k * k + l * l + m * m)
 
 
-def deposit(values, r_low, r_up, phase_vol, valid, grid):
+def deposit(values, r_low, r_up, phase_vol, valid, grid, index_dtype=None):
     """``(nvar, len(grid) - 1)``: ``values`` ``(nvar, n)`` times each
     ray's overlap with the cells of ``grid`` (in cell widths) times its
     phase-space volume, summed per cell.  The reference's index rule:
     ``r / dz`` truncated toward zero from origin 0, both ends clamped to
     ``len(grid) - 2`` (so the top cell receives nothing), rays wholly
-    below or above the clamp dropped; every covered cell is counted."""
+    below or above the clamp dropped; every covered cell is counted.
+    ``index_dtype`` evaluates the rule's ratios in that precision (default:
+    the edges' own)."""
     n_points = grid.shape[0]
     nzmax = n_points - 2
     dz = grid[1] - grid[0]
-    nlow = torch.trunc(r_low / dz).to(torch.int64)
-    nup = torch.trunc(r_up / dz + 1.0).to(torch.int64)
+    t = (lambda x: x) if index_dtype is None else (lambda x: x.to(index_dtype))
+    nlow = torch.trunc(t(r_low) / t(dz)).to(torch.int64)
+    nup = torch.trunc(t(r_up) / t(dz) + 1.0).to(torch.int64)
     outside = ((nlow >= nzmax) & (nup >= nzmax)) | ((nlow <= 0) & (nup <= 0))
     nlow = torch.clamp(nlow, 0, nzmax)
     nup = torch.clamp(nup, 0, nzmax)

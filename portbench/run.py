@@ -79,29 +79,42 @@ def covered_cells(s, rays_list) -> float:
     dz = float(s.bg.centers[1] - s.bg.centers[0])
     n = s.bg.centers.shape[0]
     dr = s.state0.rays.dr.double().flatten()
-    vals = [cc(r.double().flatten(), dr, act.flatten(), dz, n)
+    vals = [cc(r.to(dr.device).double().flatten(), dr,
+               act.to(dr.device).flatten(), dz, n)
             for r, act in rays_list]
     return sum(vals) / len(vals)
 
 
 def serve(driver, seconds: float):
-    """Requests until ``seconds`` have passed: ``(durations, answers'
-    host copies, judged items, window seconds)``."""
-    durations, hosts, items = [], [], []
+    """Requests until ``seconds`` have passed: ``(durations, answers,
+    judged items, window seconds)``.  The caller's check of each request
+    (:meth:`.traffic.Driver.verify`) runs between requests, outside the
+    window's time."""
+    durations, answers, items = [], [], []
     t_start = time.perf_counter()
-    deadline = t_start + seconds
+    paused = 0.0
     i = 0
     while True:
         t0 = time.perf_counter()
         ans = driver.request(i)
         t1 = time.perf_counter()
         durations.append(t1 - t0)
-        hosts.append(ans.host)
+        window_s = t1 - t_start - paused
+        ans = driver.verify(ans)
+        paused += time.perf_counter() - t1
+        answers.append(ans)
         items.extend(ans.items)
         i += 1
-        if t1 >= deadline:
+        if window_s >= seconds:
             break
-    return durations, hosts, items, time.perf_counter() - t_start
+    return durations, answers, items, window_s
+
+
+def failed_requests(answers) -> int:
+    """Requests whose host copy holds a non-finite value, or whose files
+    the caller's read-back found short."""
+    return sum(1 for a in answers
+               if a.failed or not bool(torch.isfinite(a.host).all()))
 
 
 def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
@@ -119,7 +132,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_first = time.time()
-        durations, hosts, items, window_s = serve(driver, seconds)
+        durations, answers, items, window_s = serve(driver, seconds)
+        failed = failed_requests(answers)
         n_req = len(durations)
         ctx = SimpleNamespace(
             cell=cell, setup=s, driver=driver, slots=s.state0.rays.r.numel(),
@@ -140,6 +154,10 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
                 hist = driver.last
                 frames = [(s.state0.rays.r, s.statics0.active)] + [
                     (hist[3][f], hist[5][f]) for f in range(hist[3].shape[0])]
+            elif driver.kind == "cli_run":
+                # the last traced request's frames, as read back
+                frames = ([(s.state0.rays.r, s.statics0.active)]
+                          + driver.cli.covered_frames())
             else:
                 frames = [(in_state.rays.r, s.statics0.active),
                           (driver.state.rays.r, driver.statics.active)]
@@ -147,11 +165,12 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
             ctx.trace_requests = n_trace
             ctx.trace_steps = n_trace * driver.steps
             ctx.cells = covered_cells(s, frames)
+            # the program's frames: active rays a frame
+            ctx.active_rays = sum(float(act.sum()) for _, act in frames[1:]) / (
+                len(frames) - 1)
             del frames
             breakdown = {"device_ops": trace.top_ops(window.device),
                          "idle_gaps": trace.top_gaps(window)}
-    # a request fails when the caller's copy holds a non-finite value
-    failed = int((~torch.isfinite(torch.stack(hosts)).flatten(1).all(1)).sum())
     metrics_of = cell.per_layer if want_trace else cell.end_to_end
     metrics = {}
     for m in metrics_of:
@@ -174,7 +193,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, want_trace: bool,
         dev["window_s"] = ctx.trace.wall_s
         dev["sleeps_lost"] = ctx.trace.sleeps_lost
     # the program's state is freed before the reference runs
-    del ctx, driver, hosts
+    driver.close()
+    del ctx, driver, answers
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()

@@ -23,10 +23,16 @@ def test_percentile_nearest_rank_over_all_values():
 
 
 class FakeDriver:
-    """Requests whose host-clock durations are scripted."""
+    """Requests whose host-clock durations, and the caller's checks of
+    them, are scripted."""
 
-    def __init__(self, durations, clock):
+    def __init__(self, durations, clock, checks=None):
         self.durations, self.clock, self.calls = list(durations), clock, []
+        self.checks = list(checks or [0.0] * len(self.durations))
+
+    def verify(self, ans):
+        self.clock.now += self.checks[len(self.calls) - 1]
+        return ans
 
     def request(self, i):
         self.calls.append(i)
@@ -55,3 +61,15 @@ def test_serve_counts_every_request_and_the_whole_window(monkeypatch):
     assert items == [1]
     assert stats.rate(10, len(durations) * 720, window) == pytest.approx(
         10 * 3 * 720 / 1.4)
+
+
+def test_serve_leaves_the_callers_checks_out_of_the_window(monkeypatch):
+    clock = Clock()
+    monkeypatch.setattr(run.time, "perf_counter", clock)
+    d = FakeDriver([0.3, 0.2, 0.9, 0.4], clock, checks=[0.5, 0.5, 0.5, 0.5])
+    durations, _, _, window = run.serve(d, seconds=1.0)
+    # the checks take as long as the requests, and neither the deadline
+    # nor the window counts them
+    assert d.calls == [0, 1, 2]
+    assert window == pytest.approx(1.4)
+    assert clock.now == pytest.approx(100.0 + 1.4 + 1.5)

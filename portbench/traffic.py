@@ -2,7 +2,7 @@
 that the port serves, with everything the comparison needs of the
 requests it samples.
 
-Two kinds of mix (a traffic file's ``kind``):
+Three kinds of mix (a traffic file's ``kind``):
 
 * ``whole_run``: each request runs ``steps_per_request`` steps from the
   seeded initial state through the port's whole-run entry,
@@ -15,6 +15,10 @@ Two kinds of mix (a traffic file's ``kind``):
   the caller copying the mean wind to the host after it; the state carries
   from request to request and restarts from the seeded initial state
   every ``restart_every`` steps.
+* ``cli_run``: each request is one in-process call of the port's
+  experiment driver (``python -m msgwam_tpu_torch run``) on the seeded
+  state, its frames streamed to a file and its diagnostics saved, all read
+  back by the caller (:mod:`.cli_run`).
 
 The configuration decides the rest: an imposed wind (the tidal shear,
 made here for every step) and a relaunch template (the launch population
@@ -125,11 +129,13 @@ class Item(NamedTuple):
     wind_in: tuple      # u, v
     rays_out: tuple
     wind_out: tuple     # u, v as the caller read them on the host
+    diag: tuple = None  # the program's wave action and flux of rays_out
 
 
 class Answer(NamedTuple):
     host: torch.Tensor          # the caller's host copy
     items: list                 # what the check needs (sampled requests)
+    failed: bool = False        # the caller's read-back found it short
 
 
 def sample(seed: int, check: dict, n_launches: int) -> dict:
@@ -154,7 +160,7 @@ class Driver:
 
         self.s = s
         self.kind = traffic["kind"]
-        if self.kind not in ("whole_run", "stepwise"):
+        if self.kind not in ("whole_run", "stepwise", "cli_run"):
             raise ValueError(f"unknown traffic kind {self.kind!r}")
         self.steps = int(traffic["steps_per_request"])
         self.save_every = int(traffic["save_every"])
@@ -169,7 +175,20 @@ class Driver:
                              "mixes only")
         self.picked = sample(seed, traffic["check"], self.n_launches)
         self.prog = prog
+        self.cli = None
+        if self.kind == "cli_run":
+            from .cli_run import CliRun
+
+            if self.lifecycle:
+                raise ValueError("a cli_run mix runs a deployment without "
+                                 "the lifecycle or an imposed wind")
+            self.cli = CliRun(s, traffic)
         self.reset()
+
+    def close(self):
+        """Remove what the mix wrote outside the program's state."""
+        if self.cli is not None:
+            self.cli.close()
 
     def reset(self):
         self.state, self.statics, self.step_no = self.s.state0, self.s.statics0, 0
@@ -181,6 +200,8 @@ class Driver:
         launches = self.picked.get(i, []) if keep else []
         if self.kind == "whole_run":
             return self._whole_run(launches)
+        if self.kind == "cli_run":
+            return self._cli_run(launches)
         return self._stepwise(i, launches)
 
     def _whole_run(self, launches) -> Answer:
@@ -208,6 +229,34 @@ class Driver:
                               tuple(h[f] for h in hist[2:]),
                               (host[0, f], host[1, f])))
         return Answer(host, items)
+
+    def _cli_run(self, launches) -> Answer:
+        with record_function("portbench.request"):
+            self.cli.request()
+        with record_function("portbench.host_read"):
+            host = self.cli.host_copy()
+        self.judged = launches
+        return Answer(host, [])
+
+    def verify(self, ans: Answer) -> Answer:
+        """The caller's check of the request just served, which the window
+        does not time: a ``cli_run`` mix's read-back of the files and of
+        the sampled frames (:meth:`.cli_run.CliRun.read_back`); the other
+        mixes gather theirs in the request."""
+        if self.kind != "cli_run":
+            return ans
+        s, back = self.s, self.cli.read_back(ans.host, self.judged)
+        items = []
+        for f in self.judged if not back.failed else ():
+            if f == 0:
+                r_in = (s.state0.rays.dens, s.state0.rays.r, s.state0.rays.m,
+                        s.statics0.active)
+                w_in = (s.u0, s.v0)
+            else:
+                r_in, w_in = back.rays[f - 1], back.wind[f - 1]
+            items.append(Item(f * self.save_every, self.save_every, r_in, w_in,
+                              back.rays[f], back.wind[f], back.diag[f]))
+        return Answer(ans.host, items, back.failed)
 
     def _ensemble_day(self) -> tuple:
         """A day of a member-stacked configuration: one call of the
